@@ -7,9 +7,11 @@ run that was meant for the card can never quietly measure the host.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "sm_count"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -24,3 +26,10 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the kernels'
+    wrappers size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -7,7 +7,8 @@ carry fewer heads than Q (GQA/MQA), query head h reading K/V head
 h // (H/Hkv).
 
 :func:`flash_attention` runs the CUDA kernel ``csrc/flash_attention.cu``
-when ``q`` lies on a CUDA device (f32 or bf16, any S, causal or not) and
+when ``q`` lies on a CUDA device (f32 or bf16, any S, causal or not,
+head dims that are multiples of 8 up to 256) and
 :func:`flash_attention_plain` when it lies on the CPU.  There is no
 other branch: the TPU wrapper's fallback to ``local_attention`` for an
 S that does not divide its tiles has no counterpart, because the kernel
@@ -20,6 +21,7 @@ import math
 
 import torch
 
+from ..device import sm_count
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "local_attention"]
@@ -74,6 +76,7 @@ def flash_attention_plain(q, k, v, causal: bool = False):
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
 _lib = None
 
 
@@ -84,19 +87,26 @@ def _kernel_lib():
         p, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_fwd.argtypes = [
             i32, p, p, p, p, p, i32, i32, i32, i32, i32, i32,
-            ctypes.c_float, p]
+            ctypes.c_float, i32, p]
         lib.flash_attention_fwd.restype = i32
-        lib.flash_attention_max_head_dim.argtypes = []
-        lib.flash_attention_max_head_dim.restype = i32
         lib.flash_attention_error_string.argtypes = [i32]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def _flash_kernel(q, k, v, causal: bool):
-    """Launch ``csrc/flash_attention.cu`` on the current stream.  Raises
-    on any input the kernel does not take and on a launch error."""
+def m_tiles_for(b: int, h: int, s: int, d: int, sms: int) -> int:
+    """16-row m-tiles per warp: two (128-row blocks) halve the K/V reads
+    per flop, and are taken where they still give about two blocks per
+    SM and their accumulators fit the registers (head dim <= 128)."""
+    return 2 if d <= 128 and b * h * -(-s // 128) >= 2 * sms else 1
+
+
+def _flash_kernel(q, k, v, causal: bool, m_tiles=None):
+    """Launch ``csrc/flash_attention.cu`` on the current stream.
+    ``m_tiles``: 16-row m-tiles per warp, :func:`m_tiles_for` unless
+    given (the tests run both).  Raises on any input the kernel does not take and on
+    a launch error."""
     dev = q.device
     b, s, h, d = q.shape
     hkv = k.shape[2]
@@ -113,10 +123,18 @@ def _flash_kernel(q, k, v, causal: bool):
             f"n_heads ({h}) must be a multiple of n_kv_heads ({hkv})")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("the flash kernel needs the head dim contiguous")
+    if d > MAX_HEAD_DIM or d % 8:
+        raise ValueError(f"the flash kernel takes head dims that are "
+                         f"multiples of 8 up to {MAX_HEAD_DIM}, not {d}")
+    # every row start feeds 16-byte cp.async copies
+    if any(x.data_ptr() % 16 or any(st * x.element_size() % 16
+                                    for st in x.stride()[:3])
+           for x in (q, k, v)):
+        raise ValueError("the flash kernel needs 16-byte aligned q/k/v "
+                         "rows")
     lib = _kernel_lib()
-    if d > lib.flash_attention_max_head_dim():
-        raise ValueError(f"head dim {d} exceeds the flash kernel's "
-                         f"{lib.flash_attention_max_head_dim()}")
+    if m_tiles is None:
+        m_tiles = m_tiles_for(b, h, s, d, sm_count(dev.index))
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
@@ -125,7 +143,7 @@ def _flash_kernel(q, k, v, causal: bool):
         rc = lib.flash_attention_fwd(
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), strides, b, s, h, hkv, d, int(causal),
-            1.0 / math.sqrt(d), stream)
+            1.0 / math.sqrt(d), m_tiles, stream)
     if rc:
         raise RuntimeError("flash-attention kernel launch failed: "
                            + lib.flash_attention_error_string(rc).decode())

@@ -8,13 +8,20 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the CUDA kernels from ``brpc_tpu_torch/csrc`` with ``nvcc``
-     (one process per source, in parallel) into ``build/torch_kernels/``;
+     (one process per source, in parallel) into ``build/torch_kernels/``,
+     prints ptxas' registers and spills, and counts the tensor-core
+     (HMMA) instructions in each library's SASS (``cuobjdump``): the
+     flash kernel must have some;
   3. kernel phase: calls each kernel's wrapper on the card at the
-     serving path's shapes and holds it against its plain PyTorch
-     version (f32 atol 1e-4, bf16 2e-2), timing kernel, plain version
-     and -- for flash attention -- ``scaled_dot_product_attention``
-     (timed here only; the port never calls it) with CUDA events, both
-     as issued eagerly and replayed from a CUDA graph (device time);
+     serving path's shapes (and the paged kernel at a ~2048-key
+     context) and holds it against its plain PyTorch version (f32 atol
+     1e-4, bf16 2e-2), timing kernel, plain version and -- for flash
+     attention -- ``scaled_dot_product_attention`` (timed here only; the
+     port never calls it) with CUDA events, both as issued eagerly and
+     replayed from a CUDA graph (device time); each row carries its
+     bound (bytes at 3.35 TB/s, or operations at the rate of its type:
+     bf16 989 TFLOP/s, f32 as 3xTF32 at 495/3 TFLOP/s), what the kernel
+     achieved, and the CUDA launches of one call (``torch.profiler``);
   4. serving phase, for the default model (``TransformerConfig()``) and
      for the wide one (vocab 32768, d_model 1024, 8 layers, H8/Hkv4,
      D128, d_ff 4096): random weights from a seed, 8 concurrent
@@ -44,8 +51,13 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOPS = {"float32": 67e12,      # f32 outside the tensor cores
-              "bfloat16": 989e12}    # dense bf16 tensor-core rate
+# The least time for an f32 product at f32 accuracy is 3xTF32 on the
+# tensor cores (three tf32 products per f32 one at 495 TFLOP/s), which
+# beats the 67 TFLOP/s of f32 outside them; bf16 runs at 989 TFLOP/s.
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+RATE = {"bytes": "HBM 3.35 TB/s",
+        "float32": "3xTF32 tensor cores, 495 TFLOP/s / 3",
+        "bfloat16": "bf16 tensor cores, 989 TFLOP/s"}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 NEW_TOKENS = 32
 N_REQUESTS = 8
@@ -109,45 +121,82 @@ def measure(fn):
     return device, eager
 
 
-def bound(nbytes, flops, dtype):
+def bound(nbytes, flops, dtype, ms):
+    """The row's bound (ms, what bounds it, the rate) and what the kernel
+    achieved against it: GB/s when bytes bound, TFLOP/s when operations
+    do, and the bound's share of the measured time."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    by_bytes = t_bytes >= t_ops
+    b_ms = t_bytes if by_bytes else t_ops
+    return {"bound_ms": b_ms, "bound_by": "bytes" if by_bytes
+            else "operations", "bound_rate": RATE["bytes" if by_bytes
+                                                  else dtype],
+            "achieved": (f"{nbytes / ms / 1e6:.1f} GB/s" if by_bytes
+                         else f"{flops / ms / 1e9:.1f} TFLOP/s"),
+            "share_of_bound": b_ms / ms}
+
+
+def launches_per_call(fn):
+    """CUDA kernels (and copies) one call of ``fn`` puts on the device,
+    counted by ``torch.profiler`` over one warm call; "not measured"
+    where the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return (len(names), names) if names else ("not measured", [])
 
 
 # ---- kernel phase: paged attention -----------------------------------------
 
 def paged_case(dev, cfg, *, page_tokens, n, mp, prefill, extra, seed,
-               prompt_len):
+               prompt_len, standalone=False):
     """Inputs shaped as the serving path gives them to the paged kernel:
     the last layer's K/V slices of a real PagePool arena, decode rows
     with their own tables at ~prompt_len keys, or one prefill bucket of
-    causal rows over one table."""
+    causal rows over one table.  ``standalone``: an arena tensor of the
+    same layout allocated here, for more pages than a pool's block class
+    holds (the long-context row)."""
     import torch
     import brpc_tpu_torch.kvcache as kvcache
     import brpc_tpu_torch.ops.paged_attention as pa
     rng = np.random.default_rng(seed)
     h, hkv, d, L, t = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                        cfg.n_layers, page_tokens)
-    pool = kvcache.PagePool(page_bytes=t * cfg.kv_bytes_per_token,
-                            page_tokens=t, max_blocks=64, device=dev,
-                            name="smoke_pages")
     need = -(-prompt_len // t) + 1
     # rows sharing one sequence's table: all of a prefill bucket, the
     # 4 draft rows of a verify group, one row per decode slot
     per = n if prefill else (4 if extra == "local_block" else 1)
-    pages = [pool.alloc_page() for _ in range(need * (n // per))]
-    for p in pages:
-        pool.write_raw(p, rng.standard_normal(pool.page_bytes // 4)
-                       .astype(np.float32).view(np.uint8))
-    flat = np.asarray(pool.flat_ids([p.pid for p in pages]), np.int32)
+    if standalone:
+        pool, pages = None, []
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        kv = torch.randn((need * (n // per), t, L, 2, hkv, d), device=dev,
+                         generator=gen)
+        flat = np.arange(need * (n // per), dtype=np.int32)
+    else:
+        pool = kvcache.PagePool(page_bytes=t * cfg.kv_bytes_per_token,
+                                page_tokens=t, max_blocks=64, device=dev,
+                                name="smoke_pages")
+        pages = [pool.alloc_page() for _ in range(need * (n // per))]
+        for p in pages:
+            pool.write_raw(p, rng.standard_normal(pool.page_bytes // 4)
+                           .astype(np.float32).view(np.uint8))
+        flat = np.asarray(pool.flat_ids([p.pid for p in pages]), np.int32)
+        kv = pa.arena_kv_view(pool.arena(), t, L, hkv, d)
     tables = np.full((n, mp), -1, np.int32)
     tables[:, :need] = np.repeat(flat.reshape(n // per, need), per, axis=0)
     if prefill:
         lengths = np.minimum(np.arange(1, n + 1, dtype=np.int32), need * t)
     else:
         lengths = (prompt_len + rng.integers(0, t, n)).astype(np.int32)
-    kv = pa.arena_kv_view(pool.arena(), t, L, hkv, d)
     q = torch.from_numpy(rng.standard_normal((n, h, d))
                          .astype(np.float32)).to(dev)
     kw = {}
@@ -185,6 +234,10 @@ def run_paged(dev, label, cfg, **shape):
     import brpc_tpu_torch.ops.paged_attention as pa
     pool, pages, args, kw, nbytes, flops = paged_case(dev, cfg, **shape)
     scale = 1.0 / math.sqrt(cfg.head_dim)
+    # the CUDA kernels alone (split + combine, self key folded); for the
+    # verify path the raw (o, m, l), without the plain-torch local fold
+    kernel_kw = ({"raw": True} if "local_k" in kw else
+                 {k: kw[k] for k in ("extra_k", "extra_v") if k in kw})
     try:
         out = pa.paged_attention(*args, **kw)
         torch.cuda.synchronize()
@@ -196,17 +249,24 @@ def run_paged(dev, label, cfg, **shape):
         ms, eager_ms = measure(lambda: pa.paged_attention(*args, **kw))
         plain_ms, eager_plain_ms = measure(
             lambda: pa.paged_attention_plain(*args, **kw))
-        # the CUDA kernel alone, without the wrapper's self-key/local fold
-        kernel_only_ms, _ = measure(lambda: pa._paged_kernel(*args, scale))
+        kernel_only_ms, _ = measure(
+            lambda: pa._paged_kernel(*args, scale, **kernel_kw))
+        per_call, names = launches_per_call(
+            lambda: pa.paged_attention(*args, **kw))
+        s_split, pps = pa.split_plan(
+            args[0].shape[0], args[1].shape[2], args[3].shape[1],
+            torch.cuda.get_device_properties(dev).multi_processor_count)
     finally:
         for p in pages:
             pool.unref(p)
-    b_ms, b_by = bound(nbytes, flops, "float32")
     return {"shape": label, "dtype": "float32", "max_abs_err": err,
             "ms": ms, "kernel_only_ms": kernel_only_ms,
             "eager_ms": eager_ms, "plain_ms": plain_ms,
             "eager_plain_ms": eager_plain_ms, "library_ms": None,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "cuda_launches_per_call": per_call, "device_ops": names,
+            "s_split": s_split, "pages_per_split": pps,
+            "bytes": nbytes, "flops": flops,
+            **bound(nbytes, flops, "float32", ms)}
 
 
 # ---- kernel phase: flash attention ------------------------------------------
@@ -245,17 +305,34 @@ def run_flash(dev, label, b, s, h, hkv, d, dtype_name, causal=True):
     lib_err = float((lib().transpose(1, 2).float() - ref.float())
                     .abs().max())
     library_ms, eager_library_ms = measure(lib)
+    per_call, names = launches_per_call(
+        lambda: attn.flash_attention(q, k, v, causal=causal))
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * h * d * pairs
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
         * q.element_size()
-    b_ms, b_by = bound(nbytes, flops, dtype_name)
     return {"shape": label, "dtype": dtype_name, "max_abs_err": err,
             "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
             "eager_plain_ms": eager_plain_ms, "library_ms": library_ms,
             "eager_library_ms": eager_library_ms,
-            "library_max_abs_err": lib_err, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "library_max_abs_err": lib_err, "library_ratio": ms / library_ms,
+            "cuda_launches_per_call": per_call, "device_ops": names,
+            "bytes": nbytes, "flops": flops,
+            **bound(nbytes, flops, dtype_name, ms)}
+
+
+def sass_counts(kbuild):
+    """Tensor-core (HMMA), async-copy (LDGSTS) and ldmatrix (LDSM)
+    instructions in each built kernel library, by ``cuobjdump -sass``."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    out = {}
+    for name, lib in kbuild.build().items():
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        out[name] = {op: sum(1 for ln in sass.splitlines() if op in ln)
+                     for op in ("HMMA", "LDGSTS", "LDSM")}
+    return out
 
 
 # ---- serving phase ----------------------------------------------------------
@@ -335,6 +412,7 @@ def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
         torch.cuda.reset_peak_memory_stats(dev)
         mem0 = torch.cuda.memory_allocated(dev)
         pa.paged_attention.launches = 0
+        pa.paged_attention.cuda_launches = 0
         attn.flash_attention.launches = 0
         t0 = time.perf_counter()
         cold = run_all()
@@ -347,6 +425,7 @@ def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
         t_warm = time.perf_counter() - t0
         hit = store.hit_tokens - hit0
         paged_serving = pa.paged_attention.launches
+        paged_cuda_serving = pa.paged_attention.cuda_launches
         t0 = time.perf_counter()
         oracle = [models.dense_generate(params, cfg, p, NEW_TOKENS,
                                         device=dev) for p in prompts]
@@ -396,7 +475,9 @@ def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
         "steps": st["steps"], "warm_prefix_hit_tokens": hit,
         "peak_memory_bytes": peak, "peak_memory_added_bytes": peak_added,
         "launches": launches,
-        "paged_launches_engine": paged_serving, "warm_profile": prof,
+        "paged_launches_engine": paged_serving,
+        "paged_cuda_launches_engine": paged_cuda_serving,
+        "warm_profile": prof,
     }
 
 
@@ -433,6 +514,10 @@ def main() -> int:
             ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
                            if "registers" in ln or "spill" in ln]
     print(f"build: {build_s:.1f} s  {json.dumps(ptxas)}", flush=True)
+    sass = sass_counts(kbuild)
+    print(f"sass: {json.dumps(sass)}", flush=True)
+    check(sass["flash_attention"]["HMMA"] > 0,
+          "the flash kernel's SASS has no tensor-core (HMMA) instruction")
 
     cfg_a = models.TransformerConfig()
     cfg_b = models.TransformerConfig(vocab=32768, d_model=1024, n_layers=8,
@@ -454,6 +539,11 @@ def main() -> int:
         run_paged(dev, "b verify N32 MP16 T16 +local", cfg_b,
                   page_tokens=16, n=32, mp=16, prefill=False,
                   extra="local_block", seed=5, prompt_len=200),
+        # a long context: split-K spreads 128 page entries over the SMs
+        run_paged(dev, "b decode N8 MP128 T16 +self (~2048 keys)", cfg_b,
+                  page_tokens=16, n=8, mp=128, prefill=False,
+                  extra="self_key", seed=6, prompt_len=2016,
+                  standalone=True),
     ]
     flash = [
         run_flash(dev, "a oracle B1 S95 H4/2 D8", 1, 95, 4, 2, 8, "float32"),
@@ -465,10 +555,15 @@ def main() -> int:
                   "bfloat16"),
     ]
     for row in paged + flash:
+        konly = (f" kernel-only {row['kernel_only_ms']:.4f}"
+                 if "kernel_only_ms" in row else "")
         print(f"kernel {row['shape']}: err {row['max_abs_err']:.3g} "
-              f"device ms {row['ms']:.4f} (eager {row['eager_ms']:.4f}) "
-              f"plain {row['plain_ms']:.4f} library {row['library_ms']} "
-              f"bound {row['bound_ms']:.4f} ({row['bound_by']})",
+              f"device ms {row['ms']:.4f}{konly} (eager "
+              f"{row['eager_ms']:.4f}) plain {row['plain_ms']:.4f} library "
+              f"{row['library_ms']} bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']}, {row['bound_rate']}) achieved "
+              f"{row['achieved']}, {100 * row['share_of_bound']:.1f}% of "
+              f"bound, {row['cuda_launches_per_call']} CUDA launches/call",
               flush=True)
 
     # -- serving phase, twice
@@ -499,7 +594,11 @@ def main() -> int:
                 "ms": m["ms"], "kernel_ms": m["ms"],
                 "eager_ms": m["eager_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+                "bound_by": m["bound_by"], "bound_rate": m["bound_rate"],
+                "achieved": m["achieved"],
+                "share_of_bound": m["share_of_bound"],
+                "cuda_launches_per_call": m["cuda_launches_per_call"],
+                "library_ms": m["library_ms"], "sass": sass[name],
                 "at": m["shape"], "shapes": rows}
 
     kernels = [
@@ -510,7 +609,8 @@ def main() -> int:
     ]
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "ptxas": ptxas, "kernels": kernels, "serving": served,
+              "ptxas": ptxas, "sass": sass, "kernels": kernels,
+              "serving": served,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,
                   "flash_attention": attn.flash_attention.launches}}

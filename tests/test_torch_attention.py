@@ -20,7 +20,7 @@ from brpc_tpu.ops.attention import flash_attention as jax_flash
 from brpc_tpu.ops.attention import local_attention as jax_local
 from brpc_tpu_torch.ops.attention import (flash_attention,
                                           flash_attention_plain,
-                                          local_attention)
+                                          local_attention, m_tiles_for)
 
 ATOL = 1e-5
 B, S, H, D = 2, 64, 4, 16
@@ -118,3 +118,15 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     flash_attention(*_t(*_qkv(1, s=8)), causal=True)
     assert flash_attention.launches == before
 
+
+
+@pytest.mark.parametrize("b,h,s,d,tiles", [
+    (4, 8, 4096, 128, 2),      # the bench shape: plenty of 128-row blocks
+    (1, 8, 231, 128, 1),       # the wide model's oracle: too few blocks
+    (1, 4, 95, 8, 1),          # the default model's oracle
+    (4, 8, 4096, 256, 1),      # two m-tiles of D=256 overflow the registers
+])
+def test_flash_m_tiles_follow_the_shape(b, h, s, d, tiles):
+    """The kernel's rows per warp are chosen from the shape and the SM
+    count alone (H100: 132 SMs)."""
+    assert m_tiles_for(b, h, s, d, 132) == tiles

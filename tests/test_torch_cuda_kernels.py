@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import brpc_tpu_torch.ops.attention as attention
+import brpc_tpu_torch.ops.paged_attention as pa
 from brpc_tpu_torch.kvcache import PagePool
 from brpc_tpu_torch.models import runner as T
 from brpc_tpu_torch.ops.attention import (flash_attention,
@@ -120,6 +122,45 @@ def test_paged_kernel_rows_with_nothing_visible_are_zero(cuda):
         "an empty row read a page (NaN K/V) or gave NaN"
 
 
+@pytest.mark.parametrize("s_split", [1, 3, 64])
+@pytest.mark.parametrize("extra", ["none", "self_key", "local_block"])
+def test_paged_split_counts_match_plain(cuda, monkeypatch, s_split, extra):
+    """The split kernel at a forced number of splits -- one, several, and
+    more splits than page entries (blocks past the table) -- with a -1
+    entry mid-table and zero-length rows."""
+    rng = np.random.default_rng(31 + s_split)
+    pool, pages, args, kw = _paged_inputs(
+        cuda, rng, n=8, h=8, hkv=4, d=128, t=16, layers=2, mp=6,
+        prefill=False, extra=extra)
+    args[4][2] = 0
+    args[4][5] = 0
+    monkeypatch.setattr(pa, "split_plan",
+                        lambda n, hkv, mp, sms: (s_split,
+                                                 max(1, -(-mp // s_split))))
+    try:
+        before = paged_attention.cuda_launches
+        out = paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert paged_attention.cuda_launches == before + 2
+        ref = paged_attention_plain(*args, **kw)
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    finally:
+        for p in pages:
+            pool.unref(p)
+
+
+def test_paged_kernel_refuses_unaligned_pages(cuda):
+    """Pages stream in 16-byte copies: a page base off 16 bytes raises
+    rather than reading misaligned."""
+    kp = torch.zeros((2 * 4 * 2 * 8 + 1,), device=cuda)[1:].view(2, 4, 2, 8)
+    q = torch.zeros((1, 4, 8), device=cuda)
+    tables = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    lengths = torch.ones((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        paged_attention(q, kp, kp, tables, lengths)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     """A CUDA tensor never falls back to the plain version: a dtype or
     device the kernel does not take raises."""
@@ -158,6 +199,30 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, hkv, d, causal, dtype,
     assert flash_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     ref = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("m_tiles", [1, 2])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [8, 64, 128])
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 129, 231])
+def test_flash_kernel_tiles_and_edges(cuda, s, d, group, causal, dtype,
+                                      atol, m_tiles):
+    """Sequence lengths around the 64/128-row query tiles (one or two
+    16-row m-tiles per warp) and the 16/32/64-key K/V tiles, the head
+    dims the serving configurations use, GQA."""
+    hkv = 2
+    rng = np.random.default_rng(7 * s + d + group)
+    q, k, v = [torch.from_numpy(rng.standard_normal((2, s, n, d))
+                                .astype(np.float32)).to(cuda, dtype)
+               for n in (hkv * group, hkv, hkv)]
+    out = attention._flash_kernel(q, k, v, causal, m_tiles)
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 
 

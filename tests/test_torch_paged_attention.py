@@ -21,7 +21,9 @@ from brpc_tpu.ops.paged_attention import (paged_attention_gather,
                                           paged_attention_pallas)
 from brpc_tpu_torch.ops.paged_attention import (arena_kv_view,
                                                 paged_attention,
-                                                paged_attention_plain)
+                                                paged_attention_plain,
+                                                paged_attention_split_plain,
+                                                scratch_shapes, split_plan)
 
 ATOL = 1e-5
 JAX_BACKENDS = ("gather", "pallas")
@@ -126,9 +128,27 @@ def _local_block():
                                           "local_mask": mask}
 
 
+def _mixed_rows():
+    """Rows the split kernel cuts differently: long and short, a -1 entry
+    mid-table, a zero-length row, the self key on every row."""
+    rng = np.random.default_rng(29)
+    P, T, Hkv, D, H, MP = 16, 4, 2, 8, 4, 8
+    kp = rng.standard_normal((P, T, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((P, T, Hkv, D)).astype(np.float32)
+    q = rng.standard_normal((4, H, D)).astype(np.float32)
+    ek = rng.standard_normal((4, Hkv, D)).astype(np.float32)
+    ev = rng.standard_normal((4, Hkv, D)).astype(np.float32)
+    tables = np.full((4, MP), -1, np.int32)
+    tables[0, :8] = [3, 1, 4, -1, 5, 9, 2, 6]   # dead entry mid-table
+    tables[1, :2] = [7, 8]
+    tables[2, :8] = [10, 11, 12, 13, 14, 15, 0, 1]
+    lengths = np.array([31, 5, 32, 0], np.int32)
+    return (q, kp, vp, tables, lengths), {"extra_k": ek, "extra_v": ev}
+
+
 CASES = {"lengths_gqa": _lengths_gqa, "self_key": _self_key,
          "dead_entry": _dead_entry, "zero_rows": _zero_rows,
-         "local_block": _local_block}
+         "local_block": _local_block, "mixed_rows": _mixed_rows}
 
 
 @functools.cache
@@ -238,3 +258,76 @@ def test_cpu_tensors_never_count_as_kernel_launches():
     _port("wrapper", args, kw)
     assert paged_attention.launches == before
 
+
+
+# ---- the split-K merge of the CUDA path -------------------------------------
+
+SPLIT_CASES = sorted(set(CASES) - {"local_block"})
+
+
+def _torch_case(case):
+    args, kw = CASES[case]()
+    return ([torch.from_numpy(np.ascontiguousarray(a)) for a in args],
+            {k: torch.from_numpy(v) for k, v in kw.items()})
+
+
+@pytest.mark.parametrize("s_split", [1, 2, 3, 9])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_merge_matches_unsplit_plain(case, s_split):
+    """Page entries cut into s_split ranges (9: more ranges than
+    entries), one (o, m, l) per range, merged, the self key folded: the
+    same output as the one-softmax plain version."""
+    args, kw = _torch_case(case)
+    out = paged_attention_split_plain(*args, **kw, s_split=s_split)
+    assert not torch.isnan(out).any()
+    torch.testing.assert_close(out, paged_attention_plain(*args, **kw),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("s_split", [1, 2, 3, 9])
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_merge_matches_jax(case, backend, s_split):
+    args, kw = _torch_case(case)
+    out = paged_attention_split_plain(*args, **kw, s_split=s_split).numpy()
+    np.testing.assert_allclose(out, _reference(case, backend), atol=ATOL,
+                               err_msg=f"{case}: split {s_split} vs jax "
+                                       f"{backend}")
+
+
+@pytest.mark.parametrize("n,hkv,mp,sms", [
+    (8, 4, 16, 132),        # the wide configuration's decode step
+    (256, 4, 16, 132),      # ... a prefill bucket: enough blocks already
+    (32, 4, 16, 132),       # ... a verify group
+    (8, 4, 128, 132),       # ... a ~2048-key context
+    (4, 2, 32, 132),        # TransformerConfig() decode
+    (1, 1, 1, 132),
+    (3, 1, 0, 132),         # no page entries at all
+])
+def test_split_plan_covers_every_entry(n, hkv, mp, sms):
+    """The splits tile the page entries in contiguous ranges, none empty
+    by construction, with about four blocks per SM where the table is
+    long enough, and the split model cuts the same ranges."""
+    s_split, pps = split_plan(n, hkv, mp, sms)
+    assert s_split >= 1 and pps >= 1
+    if mp:
+        assert s_split <= mp and (s_split - 1) * pps < mp <= s_split * pps
+        assert -(-mp // s_split) == pps
+        assert n * hkv * s_split >= min(4 * sms, n * hkv * mp) / 2
+    o, m, l = scratch_shapes(n, 8, 128, s_split)
+    assert o == (s_split, n, 8, 128) and m == l == (s_split, n, 8)
+
+
+def test_split_plan_never_sees_lengths():
+    """Choosing the split needs no device read: the plan takes only the
+    static shapes and the SM count, so one plan serves every length."""
+    import inspect
+    assert list(inspect.signature(split_plan).parameters) == [
+        "n", "n_kv_heads", "max_pages", "sm_count"]
+    args, kw = _torch_case("mixed_rows")
+    s_split, _ = split_plan(4, 2, 8, 132)
+    for lengths in ([31, 5, 32, 0], [1, 1, 1, 1], [32, 8, 0, 0]):
+        args[4] = torch.tensor(lengths, dtype=torch.int32)
+        torch.testing.assert_close(
+            paged_attention_split_plain(*args, **kw, s_split=s_split),
+            paged_attention_plain(*args, **kw), atol=ATOL, rtol=0)
