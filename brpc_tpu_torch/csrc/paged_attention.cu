@@ -3,11 +3,14 @@
 //
 // Replaces brpc_tpu/ops/paged_attention.py::_paged_kernel (the Pallas
 // kernel behind paged_attention_pallas, pallas_call at :259) together
-// with the plain-jax self-key fold of its wrapper (:270-305).  Same
+// with the plain-jax folds of its wrapper (:270-305): the decode step's
+// self key and the speculative verify's local key block.  Same
 // contract: row n's query attends over the K/V of the pages named by
 // tables[n, :], a key at position p is visible iff p < lengths[n] and its
-// page entry is >= 0, GQA query heads share their K/V head.  A row with
-// nothing visible gives zeros.
+// page entry is >= 0, GQA query heads share their K/V head.  With a local
+// block, rows come in G groups of W and row n = g*W + i also sees local
+// key j of its group iff mask[g, i, j].  A row with nothing visible gives
+// zeros.
 //
 // Bound: bytes.  Each row reads its visible pages once per K/V head and
 // does 4*D flops per key and query head, far below the flops per byte
@@ -33,9 +36,10 @@
 //   * paged_combine_kernel, grid (N, ceil(H/4)): a warp per (row, head)
 //     merges the splits (lanes over splits for the weights, then over
 //     d in float4s), folds the optional self key (the decode step's
-//     in-flight K/V) and writes the normalised output -- or, for the
-//     verify path's local block, the merged unnormalised (o, m, l),
-//     which the wrapper folds.
+//     in-flight K/V) or the row's visible local keys (the verify's
+//     draft K/V, at most kMaxW per group: lanes over d for the W dot
+//     products, all in flight together, then one warp sum each) into the
+//     same max and sum, and writes the normalised output.
 // Scores are kept in the log2 domain (q pre-scaled by log2(e)/sqrt(d));
 // m is converted back to natural units where it leaves the kernels.
 #include <cuda_runtime.h>
@@ -48,8 +52,8 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxV = 4;            // float4 o slots per thread: G*D <= 2048
 constexpr int kStages = 3;          // pages in the shared-memory ring
+constexpr int kMaxW = 16;           // local block width the combine takes
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
@@ -294,17 +298,17 @@ __global__ void __launch_bounds__(kThreads) paged_split_kernel(
 }
 
 // A warp per (row n, head h): merge the S_split partials, fold the self
-// key when ek != nullptr, then either divide (raw == 0: out [N, H, D]) or
-// write the merged unnormalised state (raw == 1: out = o, m_out in
-// natural units, l_out).
+// key (ek != nullptr) or the local block (W > 0), divide.
 __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
     const float* __restrict__ o_part, const float* __restrict__ m_part,
     const float* __restrict__ l_part, int S_split,
     const float* __restrict__ q, long long q_sn, long long q_sh,
     const float* __restrict__ ek, const float* __restrict__ ev,
-    long long e_sn, long long e_sh, float* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int N, int H,
-    int Hkv, int D, float scale_log2, int raw) {
+    long long e_sn, long long e_sh, const float* __restrict__ lk,
+    const float* __restrict__ lv, long long l_sg, long long l_sw,
+    long long l_sh, const unsigned char* __restrict__ lmask, long long m_sg,
+    long long m_si, long long m_sj, int W, float* __restrict__ out, int N,
+    int H, int Hkv, int D, float scale_log2) {
   const int n = blockIdx.x;
   const int h = blockIdx.y * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -315,20 +319,47 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
   extern __shared__ float w_smem[];
   float* w = w_smem + (threadIdx.x >> 5) * 2 * S_split;   // this warp's
   float* lw = w + S_split;                                // m, then weights
+  const float* qr = q + n * q_sn + h * q_sh;
 
   // the self key's score and every partial's (m, l): independent loads,
   // issued together
   float es = -INFINITY;
   const float* evr = nullptr;
   if (ek != nullptr) {
-    const float* qr = q + n * q_sn + h * q_sh;
     const float* ekr = ek + n * e_sn + hk * e_sh;
     evr = ev + n * e_sn + hk * e_sh;
     float dot = 0.f;
     for (int d = lane; d < D; d += 32) dot = fmaf(qr[d], ekr[d], dot);
     es = warp_sum(dot) * scale_log2;
   }
+  // the local block: key j's score (log2 units) in ls[j] of every lane,
+  // -inf where the mask hides it
+  float ls[kMaxW];
+#pragma unroll
+  for (int j = 0; j < kMaxW; ++j) ls[j] = 0.f;
+  const float* lkg = nullptr;
+  const float* lvg = nullptr;
+  unsigned vis = 0;
+  if (W > 0) {
+    const int g = n / W, i = n - g * W;
+    lkg = lk + g * l_sg + hk * l_sh;
+    lvg = lv + g * l_sg + hk * l_sh;
+    vis = __ballot_sync(0xffffffffu,
+                        lane < W && lmask[g * m_sg + i * m_si + lane * m_sj]);
+    for (int d = lane; d < D; d += 32) {
+      const float qd = qr[d];
+#pragma unroll
+      for (int j = 0; j < kMaxW; ++j)
+        if ((vis >> j) & 1u) ls[j] = fmaf(qd, lkg[j * l_sw + d], ls[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxW; ++j)     // vis is the same in every lane
+      ls[j] = (vis >> j) & 1u ? warp_sum(ls[j]) * scale_log2 : -INFINITY;
+  }
   float M = es;
+#pragma unroll
+  for (int j = 0; j < kMaxW; ++j)
+    if ((vis >> j) & 1u) M = fmaxf(M, ls[j]);
   for (int s = lane; s < S_split; s += 32) {
     const float ms = m_part[s * stride + nh];
     w[s] = ms;
@@ -341,10 +372,6 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
   if (M == -INFINITY) {                 // nothing visible: zeros
     for (int c = lane; c < C; c += 32)
       orow[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (raw && lane == 0) {
-      m_out[nh] = -INFINITY;
-      l_out[nh] = 0.f;
-    }
     return;
   }
   // an empty split has m = -inf (weight 0) and o = 0
@@ -355,9 +382,15 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
     L = fmaf(ws, lw[s], L);
   }
   const float we = ek != nullptr ? exp2f(es - M) : 0.f;
-  L = warp_sum(L) + we;
+  float lsum = we;
+#pragma unroll
+  for (int j = 0; j < kMaxW; ++j) {     // exp2(-inf) = 0 for hidden keys
+    ls[j] = (vis >> j) & 1u ? exp2f(ls[j] - M) : 0.f;
+    lsum += ls[j];
+  }
+  L = warp_sum(L) + lsum;
   __syncwarp();
-  const float inv = raw ? 1.f : 1.f / L;          // L > 0: M is finite
+  const float inv = 1.f / L;            // L > 0: M is finite
   const float4* op = reinterpret_cast<const float4*>(o_part) + nh * C;
   const float4* evr4 = reinterpret_cast<const float4*>(evr);
   for (int c = lane; c < C; c += 32) {
@@ -365,6 +398,17 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
     if (ek != nullptr) {
       const float4 x = evr4[c];
       acc = make_float4(we * x.x, we * x.y, we * x.z, we * x.w);
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxW; ++j) {
+      if ((vis >> j) & 1u) {
+        const float wj = ls[j];
+        const float4 x = reinterpret_cast<const float4*>(lvg + j * l_sw)[c];
+        acc.x = fmaf(wj, x.x, acc.x);
+        acc.y = fmaf(wj, x.y, acc.y);
+        acc.z = fmaf(wj, x.z, acc.z);
+        acc.w = fmaf(wj, x.w, acc.w);
+      }
     }
 #pragma unroll 4
     for (int s = 0; s < S_split; ++s) {
@@ -377,10 +421,6 @@ __global__ void __launch_bounds__(kThreads) paged_combine_kernel(
     }
     orow[c] = make_float4(acc.x * inv, acc.y * inv, acc.z * inv,
                           acc.w * inv);
-  }
-  if (raw && lane == 0) {
-    m_out[nh] = M * kLn2;
-    l_out[nh] = L;
   }
 }
 
@@ -399,13 +439,18 @@ long long paged_attention_smem_bytes(int H, int Hkv, int D, int T, int pps) {
 // Largest G*D the split kernel's register slots hold.
 int paged_attention_max_group_width() { return kMaxV * kThreads * 4; }
 
+// Largest local block width W the combine kernel folds.
+int paged_attention_max_local_width() { return kMaxW; }
+
 // q [N, H, D] (d contiguous), k/v pages addressed as
 // base + page*kv_sp + token*kv_st + head*kv_sh + d (16-byte aligned, D a
 // multiple of 4), tables [N, MP] int32 (row stride tab_sn), lengths [N]
 // int32; o_part [S_split, N, H, D], m_part/l_part [S_split, N, H] f32
-// scratch.  ek/ev [N, Hkv, D] (strides e_sn, e_sh) or null.  out
-// [N, H, D] contiguous; with raw, also m_out/l_out [N, H].  Launches the
-// split and the combine kernel on `stream`; returns cudaGetLastError().
+// scratch.  ek/ev [N, Hkv, D] (strides e_sn, e_sh) or null.  With
+// W > 0: lk/lv [G, W, Hkv, D] (strides l_sg, l_sw, l_sh; 16-byte aligned
+// rows) and lmask [G, W, W] bool (strides m_sg, m_si, m_sj), N == G*W,
+// W <= kMaxW.  out [N, H, D] contiguous.  Launches the split and the
+// combine kernel on `stream`; returns cudaGetLastError().
 int paged_attention_f32(const float* q, long long q_sn, long long q_sh,
                         const float* k, const float* v, long long kv_sp,
                         long long kv_st, long long kv_sh, const int* tables,
@@ -413,9 +458,14 @@ int paged_attention_f32(const float* q, long long q_sn, long long q_sh,
                         float* m_part, float* l_part, int N, int H, int Hkv,
                         int D, int T, int MP, int S_split, int pps,
                         float scale, const float* ek, const float* ev,
-                        long long e_sn, long long e_sh, float* out,
-                        float* m_out, float* l_out, int raw, void* stream) {
+                        long long e_sn, long long e_sh, const float* lk,
+                        const float* lv, long long l_sg, long long l_sw,
+                        long long l_sh, const unsigned char* lmask,
+                        long long m_sg, long long m_si, long long m_sj,
+                        int W, float* out, void* stream) {
   if (N == 0) return 0;
+  if (W < 0 || W > kMaxW || (W > 0 && N % W))
+    return (int)cudaErrorInvalidValue;
   static long long smem_set = 48 * 1024;
   const long long smem = paged_attention_smem_bytes(H, Hkv, D, T, pps);
   if (smem > smem_set) {
@@ -433,9 +483,10 @@ int paged_attention_f32(const float* q, long long q_sn, long long q_sh,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   paged_combine_kernel<<<dim3(N, (H + kWarps - 1) / kWarps), kThreads,
-                         2 * kWarps * S_split * sizeof(float), st>>>(o_part, m_part, l_part, S_split, q, q_sn,
-                               q_sh, ek, ev, e_sn, e_sh, out, m_out, l_out,
-                               N, H, Hkv, D, sl2, raw);
+                         2 * kWarps * S_split * sizeof(float), st>>>(
+      o_part, m_part, l_part, S_split, q, q_sn, q_sh, ek, ev, e_sn, e_sh, lk,
+      lv, l_sg, l_sw, l_sh, lmask, m_sg, m_si, m_sj, W, out, N, H, Hkv, D,
+      sl2);
   return (int)cudaGetLastError();
 }
 

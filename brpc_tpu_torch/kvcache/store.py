@@ -12,6 +12,11 @@ through :meth:`KVCacheStore.write_kv`.  The lifecycle the engine drives:
                     shared target page first; ``final=True`` advances
                     the materialisation cursor ``kv_filled``;
   fork(seq)      -> a second sequence sharing every page;
+  speculate(seq, draft) / rollback(seq, keep) / commit_draft(seq, upto)
+                 -> draft leases for speculative decoding: a draft is
+                    appended without advancing ``kv_filled``, a rejected
+                    tail returns its pages, an accepted prefix commits
+                    (vector KV: by ``write_kv_batch`` of its real rows);
   retire(seq)    -> full, materialised page chunks are offered to the
                     radix tree, every seq ref drops.
 
@@ -81,6 +86,8 @@ class KVCacheStore:
         self.admitted = 0
         self.retired = 0
         self.forks = 0
+        self.speculated = 0         # draft tokens appended
+        self.rolled_back = 0        # draft pages released
 
     # ---- lifecycle ----
 
@@ -198,6 +205,61 @@ class KVCacheStore:
             self.forks += 1
             self._live += 1
             return child
+
+    # ---- draft leases (speculative decoding) ----
+
+    def speculate(self, seq: KVSeq, tokens: Sequence[int]) -> None:
+        """Append DRAFT tokens to `seq`: pages are allocated (a shared
+        tail copied first) exactly as :meth:`extend` does, but
+        ``kv_filled`` holds, so an unverified draft is never cached at
+        :meth:`retire`.  Pair with :meth:`rollback` (reject) and
+        ``write_kv_batch`` of the verified rows (accept)."""
+        if not tokens:
+            return
+        with self._mu:
+            if seq.retired:
+                raise RuntimeError(f"speculate on retired seq {seq.seq_id}")
+            self._append_run(seq, tokens)
+            self.speculated += len(tokens)
+
+    def rollback(self, seq: KVSeq, keep_tokens: int) -> int:
+        """Reject a draft tail: truncate `seq` to its first
+        `keep_tokens` tokens and release the pages past the boundary.
+        Never cuts below ``kv_filled``: real K/V is not un-written by a
+        rejected draft.  Returns the pages released."""
+        keep = int(keep_tokens)
+        with self._mu:
+            if seq.retired:
+                raise RuntimeError(f"rollback on retired seq {seq.seq_id}")
+            if keep > len(seq.tokens):
+                raise ValueError(
+                    f"rollback to {keep} > {len(seq.tokens)} tokens")
+            if keep < seq.kv_filled:
+                raise ValueError(
+                    f"rollback to {keep} would cut the materialised "
+                    f"prefix (kv_filled={seq.kv_filled})")
+            del seq.tokens[keep:]
+            need = -(-keep // self.page_tokens)
+            dropped, seq.pages = seq.pages[need:], seq.pages[:need]
+            for p in dropped:
+                self.pagepool.unref(p)
+            self.rolled_back += len(dropped)
+            return len(dropped)
+
+    def commit_draft(self, seq: KVSeq, upto: int) -> None:
+        """Advance ``kv_filled`` to `upto` tokens.  Only for slots whose
+        real K/V is already in place: the engine commits verified rows
+        through ``write_kv_batch`` (``final=True``) instead, since the
+        draft append writes no bytes."""
+        upto = int(upto)
+        with self._mu:
+            if seq.retired:
+                raise RuntimeError(
+                    f"commit_draft on retired seq {seq.seq_id}")
+            if upto > len(seq.tokens):
+                raise ValueError(
+                    f"commit_draft to {upto} > {len(seq.tokens)} tokens")
+            seq.kv_filled = max(seq.kv_filled, upto)
 
     def retire(self, seq: KVSeq, *, cache: bool = True) -> None:
         """End a sequence.  With ``cache=True`` its full materialised
@@ -326,6 +388,8 @@ class KVCacheStore:
                 "admitted": self.admitted,
                 "retired": self.retired,
                 "forks": self.forks,
+                "speculated_tokens": self.speculated,
+                "rolled_back_pages": self.rolled_back,
                 "cow_forks": self.cow,
                 "evictions": self.evictions,
                 "radix_nodes": self.radix.node_count(),

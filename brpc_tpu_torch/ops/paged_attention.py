@@ -20,7 +20,8 @@ across suffix positions):
                             key block: rows form G groups of W queries
                             (N == G*W) and row i of group g also sees
                             local key j iff local_mask[g, i, j].
-                            Mutually exclusive with extra_k.
+                            Mutually exclusive with extra_k.  The kernel
+                            takes W <= MAX_LOCAL_WIDTH.
 
 GQA: query head h reads K/V head h // (H/Hkv).  Rows with no visible
 key give zeros, never NaN.
@@ -31,13 +32,13 @@ One contract, three versions:
     CUDA device it runs ``csrc/paged_attention.cu``: a split kernel
     folds contiguous ranges of page entries into partial (o, m, l)
     (how many ranges: :func:`split_plan`, from static shapes only) and a
-    combine kernel merges them, folds the self key and divides -- two
-    launches and no other device work for a decode step.  With a local
-    block the combine kernel returns the merged (o, m, l) and the block
-    is folded here in plain torch.  On the CPU the paged part is
+    combine kernel merges them, folds the self key or the local block
+    and divides -- two launches and no other device work for a decode
+    step or a verify.  On the CPU the paged part is
     :func:`_paged_oml_plain` and both folds run here.
   * :func:`paged_attention_split_plain` -- the CUDA path's arithmetic
-    (ranges, merge, self-key fold) in plain torch, for the tests.
+    (ranges, then the combine kernel's merge and folds) in plain torch,
+    which the tests and ``chip_smoke.py`` hold the kernel against.
   * :func:`paged_attention_plain` -- an independent gather + masked
     softmax version of the whole function (the port of
     ``paged_attention_gather``), which the tests and ``chip_smoke.py``
@@ -53,10 +54,14 @@ import torch
 from ..device import sm_count
 from . import _build
 
-__all__ = ["arena_kv_view", "paged_attention", "paged_attention_plain",
-           "paged_attention_split_plain", "scratch_shapes", "split_plan"]
+__all__ = ["MAX_LOCAL_WIDTH", "arena_kv_view", "paged_attention",
+           "paged_attention_plain", "paged_attention_split_plain",
+           "scratch_shapes", "split_plan"]
 
 _NEG_INF = float("-inf")
+# the widest local block (draft rows per verify group) the combine kernel
+# folds; csrc/paged_attention.cu's kMaxW
+MAX_LOCAL_WIDTH = 16
 
 
 def arena_kv_view(arena_u8: torch.Tensor, page_tokens: int, n_layers: int,
@@ -134,14 +139,8 @@ def paged_attention_plain(q, k_pages, v_pages, tables, lengths,
                       dim=-1)
         v = torch.cat([v, ev[:, None]], dim=1)             # [N, K+1, H, D]
     if local_k is not None:
-        g, w = local_mask.shape[0], local_mask.shape[1]
-        lk = _expand_heads(local_k, h).float()             # [G, W, H, D]
-        lv = _expand_heads(local_v, h).float()
-        ls = torch.einsum("gihd,gjhd->gihj", qf.reshape(g, w, h, d), lk)
-        ls = ls.masked_fill(~local_mask.bool()[:, :, None, :], _NEG_INF)
-        s = torch.cat([s, ls.reshape(n, h, w)], dim=-1)
-        lvb = lv[:, None].expand(g, w, w, h, d).reshape(n, w, h, d)
-        v = torch.cat([v, lvb], dim=1)
+        s = torch.cat([s, _local_scores(qf, local_k, local_mask)], dim=-1)
+        v = torch.cat([v, _local_values(local_v, local_mask, h)], dim=1)
     # -inf-safe softmax: rows with no visible key give zeros, not NaN
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
@@ -169,19 +168,47 @@ def _paged_oml_plain(q, k_pages, v_pages, tables, lengths, scale):
     return torch.einsum("nhk,nkhd->nhd", p, v), m, p.sum(dim=-1)
 
 
-def _merge_oml(parts):
-    """Merge partial (o, m, l) states over disjoint key sets into one
-    (the combine kernel's merge); all--inf rows stay (0, -inf, 0)."""
-    m_all = torch.stack([m for _, m, _ in parts])
-    mx = m_all.amax(dim=0)
+def _local_scores(qf, local_k, local_mask):
+    """[N, H, W] scores of each row's group's local keys, -inf where the
+    ancestry mask hides them."""
+    n, h, d = qf.shape
+    g, w = local_mask.shape[0], local_mask.shape[1]
+    lk = _expand_heads(local_k, h).float()                  # [G, W, H, D]
+    ls = torch.einsum("gihd,gjhd->gihj", qf.reshape(g, w, h, d), lk)
+    return ls.masked_fill(~local_mask.bool()[:, :, None, :],
+                          _NEG_INF).reshape(n, h, w)
+
+
+def _local_values(local_v, local_mask, h):
+    """[N, W, H, D]: each row's group's local values."""
+    g, w = local_mask.shape[0], local_mask.shape[1]
+    lv = _expand_heads(local_v, h).float()                  # [G, W, H, D]
+    return lv[:, None].expand(g, w, w, h, lv.shape[-1]) \
+        .reshape(g * w, w, h, lv.shape[-1])
+
+
+def _combine(parts, xs=None, xv=None):
+    """The combine kernel's arithmetic: the partial (o, m, l) states of
+    disjoint key ranges and the extra keys' scores ``xs`` [N, H, E] with
+    values ``xv`` [N, E, H, D] (the self key, E = 1, or the local block)
+    share ONE max; then the weighted sums; then the division.  A row
+    with nothing visible gives zeros."""
+    mx = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    if xs is not None:
+        mx = torch.maximum(mx, xs.amax(dim=-1))
     m_safe = torch.where(torch.isneginf(mx), torch.zeros_like(mx), mx)
     o, l = 0.0, 0.0
+    if xs is not None:
+        pe = torch.where(torch.isneginf(xs), torch.zeros_like(xs),
+                         torch.exp(xs - m_safe[..., None]))
+        o = torch.einsum("nhe,nehd->nhd", pe, xv)
+        l = pe.sum(dim=-1)
     for po, pm, pl in parts:
         w = torch.where(torch.isneginf(pm), torch.zeros_like(pm),
                         torch.exp(pm - m_safe))
         o = o + w[..., None] * po
         l = l + w * pl
-    return o, mx, l
+    return _normalise(o, l)
 
 
 def _fold_self_key(o, mx, l, qf, extra_k, extra_v):
@@ -199,13 +226,7 @@ def _fold_self_key(o, mx, l, qf, extra_k, extra_v):
 
 def _fold_local(o, mx, l, qf, local_k, local_v, local_mask):
     """The whole local key block at once, masked by ancestry."""
-    n, h, d = qf.shape
-    g, w = local_mask.shape[0], local_mask.shape[1]
-    lk = _expand_heads(local_k, h).float()
-    lv = _expand_heads(local_v, h).float()
-    ls = torch.einsum("gihd,gjhd->gihj", qf.reshape(g, w, h, d), lk)
-    ls = ls.masked_fill(~local_mask.bool()[:, :, None, :],
-                        _NEG_INF).reshape(n, h, w)
+    ls = _local_scores(qf, local_k, local_mask)
     m_new = torch.maximum(mx, ls.amax(dim=-1))
     m_safe = torch.where(torch.isneginf(m_new), torch.zeros_like(m_new),
                          m_new)
@@ -213,7 +234,7 @@ def _fold_local(o, mx, l, qf, local_k, local_v, local_mask):
                         torch.exp(mx - m_safe))
     pe = torch.exp(ls - m_safe[..., None])
     pe = torch.where(torch.isneginf(ls), torch.zeros_like(pe), pe)
-    lvb = lv[:, None].expand(g, w, w, h, d).reshape(n, w, h, d)
+    lvb = _local_values(local_v, local_mask, qf.shape[1])
     return (o * alpha[..., None] + torch.einsum("nhw,nwhd->nhd", pe, lvb),
             l * alpha + pe.sum(dim=-1))
 
@@ -224,13 +245,19 @@ def _normalise(o, l):
 
 
 def paged_attention_split_plain(q, k_pages, v_pages, tables, lengths,
-                                extra_k=None, extra_v=None, *,
-                                s_split: int):
+                                extra_k=None, extra_v=None,
+                                local_k=None, local_v=None, local_mask=None,
+                                *, s_split: int):
     """The CUDA path's arithmetic in plain torch: the page entries cut
     into ``s_split`` ranges of ceil(MP / s_split) entries (for a
     :func:`split_plan` pair, the kernel's ranges), one (o, m, l) per
-    range, merged, the self key folded, divided.  The tests hold it
-    against the unsplit versions and the JAX package's."""
+    range, then the combine kernel's order: one max over the ranges and
+    the self key or the visible local keys, the weighted sums, the
+    division.  The tests hold it against the unsplit versions and the
+    JAX package's; the card tests and ``chip_smoke.py`` hold the kernel
+    against it."""
+    n, h, _ = q.shape
+    _check_local(extra_k, local_k, local_v, local_mask, n)
     mp = tables.shape[1]
     pps = max(1, -(-mp // s_split))
     scale = 1.0 / math.sqrt(q.shape[2])
@@ -241,10 +268,16 @@ def paged_attention_split_plain(q, k_pages, v_pages, tables, lengths,
         sub = tables.masked_fill(outside[None, :], -1)
         parts.append(_paged_oml_plain(q, k_pages, v_pages, sub, lengths,
                                       scale))
-    o, mx, l = _merge_oml(parts)
+    qf = q.float() * scale
+    xs = xv = None
     if extra_k is not None:
-        o, l = _fold_self_key(o, mx, l, q.float() * scale, extra_k, extra_v)
-    return _normalise(o, l).to(q.dtype)
+        xs = torch.einsum("nhd,nhd->nh", qf,
+                          _expand_heads(extra_k, h).float())[..., None]
+        xv = _expand_heads(extra_v, h).float()[:, None]
+    elif local_k is not None:
+        xs = _local_scores(qf, local_k, local_mask)
+        xv = _local_values(local_v, local_mask, h)
+    return _combine(parts, xs, xv).to(q.dtype)
 
 
 # ---- the CUDA kernels -------------------------------------------------------
@@ -280,12 +313,18 @@ def _kernel_lib():
         lib.paged_attention_f32.argtypes = [
             p, i64, i64, p, p, i64, i64, i64, p, i64, p, p, p, p,
             i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float,
-            p, p, i64, i64, p, p, p, i32, p]
+            p, p, i64, i64, p, p, i64, i64, i64, p, i64, i64, i64, i32,
+            p, p]
         lib.paged_attention_f32.restype = i32
         lib.paged_attention_smem_bytes.argtypes = [i32, i32, i32, i32, i32]
         lib.paged_attention_smem_bytes.restype = i64
         lib.paged_attention_max_group_width.argtypes = []
         lib.paged_attention_max_group_width.restype = i32
+        lib.paged_attention_max_local_width.argtypes = []
+        lib.paged_attention_max_local_width.restype = i32
+        if lib.paged_attention_max_local_width() != MAX_LOCAL_WIDTH:
+            raise RuntimeError("csrc/paged_attention.cu's kMaxW differs "
+                               "from MAX_LOCAL_WIDTH")
         lib.paged_attention_error_string.argtypes = [i32]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -293,7 +332,7 @@ def _kernel_lib():
 
 
 def _check_kernel_inputs(q, k_pages, v_pages, tables, lengths, extra_k,
-                         extra_v):
+                         extra_v, local_k, local_v, local_mask):
     dev = q.device
     n, h, d = q.shape
     _, _, hkv, dk = k_pages.shape
@@ -335,17 +374,35 @@ def _check_kernel_inputs(q, k_pages, v_pages, tables, lengths, extra_k,
                 or any(st % 4 for st in extra_k.stride()[:2]):
             raise ValueError("extra_k and extra_v must share strides and "
                              "have 16-byte aligned rows")
+    if local_k is not None:
+        g, w = local_mask.shape[0], local_mask.shape[1]
+        if w > MAX_LOCAL_WIDTH:
+            raise ValueError(f"local block of {w} rows exceeds the kernel's "
+                             f"{MAX_LOCAL_WIDTH}")
+        for x in (local_k, local_v):
+            if x.dtype != torch.float32 or x.device != dev \
+                    or x.shape != (g, w, hkv, d) or x.stride(-1) != 1:
+                raise ValueError("local_k/local_v: float32 [G, W, Hkv, D] "
+                                 "on q's device, head dim contiguous")
+        if local_v.stride() != local_k.stride() \
+                or any(x.data_ptr() % 16 for x in (local_k, local_v)) \
+                or any(st % 4 for st in local_k.stride()[:3]):
+            raise ValueError("local_k and local_v must share strides and "
+                             "have 16-byte aligned rows")
+        if local_mask.dtype != torch.bool or local_mask.device != dev \
+                or local_mask.shape != (g, w, w):
+            raise ValueError("local_mask: bool [G, W, W] on q's device")
 
 
 def _paged_kernel(q, k_pages, v_pages, tables, lengths, scale,
-                  extra_k=None, extra_v=None, raw=False):
+                  extra_k=None, extra_v=None,
+                  local_k=None, local_v=None, local_mask=None):
     """Launch ``csrc/paged_attention.cu`` (split kernel, then combine
     kernel) on the current stream.  Returns the normalised output with
-    the self key folded in, or with ``raw`` the merged unnormalised
-    (o, m, l).  Raises on any input the kernels do not take and on a
-    launch error; never falls back."""
+    the self key or the local block folded in.  Raises on any input the
+    kernels do not take and on a launch error; never falls back."""
     _check_kernel_inputs(q, k_pages, v_pages, tables, lengths, extra_k,
-                         extra_v)
+                         extra_v, local_k, local_v, local_mask)
     dev = q.device
     n, h, d = q.shape
     t, hkv = k_pages.shape[1], k_pages.shape[2]
@@ -362,10 +419,18 @@ def _paged_kernel(q, k_pages, v_pages, tables, lengths, scale,
     o_part = torch.empty(o_shape, dtype=f32, device=dev)
     ml_part = torch.empty((2,) + m_shape, dtype=f32, device=dev)
     out = torch.empty((n, h, d), dtype=f32, device=dev)
-    ml = torch.empty((2, n, h), dtype=f32, device=dev) if raw else None
     ek_ptr = extra_k.data_ptr() if extra_k is not None else None
     ev_ptr = extra_v.data_ptr() if extra_k is not None else None
     e_sn, e_sh = extra_k.stride()[:2] if extra_k is not None else (0, 0)
+    if local_k is not None:
+        lk_ptr, lv_ptr = local_k.data_ptr(), local_v.data_ptr()
+        l_strides = local_k.stride()[:3]
+        m_ptr, m_strides = local_mask.data_ptr(), local_mask.stride()
+        w = local_mask.shape[1]
+    else:
+        lk_ptr = lv_ptr = m_ptr = None
+        l_strides = m_strides = (0, 0, 0)
+        w = 0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.paged_attention_f32(
@@ -375,15 +440,14 @@ def _paged_kernel(q, k_pages, v_pages, tables, lengths, scale,
             tables.data_ptr(), tables.stride(0), lengths.data_ptr(),
             o_part.data_ptr(), ml_part[0].data_ptr(), ml_part[1].data_ptr(),
             n, h, hkv, d, t, mp, s_split, pps, scale,
-            ek_ptr, ev_ptr, e_sn, e_sh, out.data_ptr(),
-            ml[0].data_ptr() if raw else None,
-            ml[1].data_ptr() if raw else None, int(raw), stream)
+            ek_ptr, ev_ptr, e_sn, e_sh, lk_ptr, lv_ptr, *l_strides,
+            m_ptr, *m_strides, w, out.data_ptr(), stream)
     if rc:
         raise RuntimeError("paged-attention kernel launch failed: "
                            + lib.paged_attention_error_string(rc).decode())
     paged_attention.launches += 1
     paged_attention.cuda_launches += 2
-    return (out, ml[0], ml[1]) if raw else out
+    return out
 
 
 # ---- the entry point --------------------------------------------------------
@@ -400,17 +464,11 @@ def paged_attention(q, k_pages, v_pages, tables, lengths,
     _check_local(extra_k, local_k, local_v, local_mask, n)
     scale = 1.0 / math.sqrt(d)
     if q.is_cuda:
-        if local_k is None:
-            return _paged_kernel(q, k_pages, v_pages, tables, lengths, scale,
-                                 extra_k, extra_v).to(q.dtype)
-        o, mx, l = _paged_kernel(q, k_pages, v_pages, tables, lengths, scale,
-                                 raw=True)
-    else:
-        o, mx, l = _paged_oml_plain(q, k_pages, v_pages, tables, lengths,
-                                    scale)
-        if extra_k is not None:
-            o, l = _fold_self_key(o, mx, l, q.float() * scale, extra_k,
-                                  extra_v)
+        return _paged_kernel(q, k_pages, v_pages, tables, lengths, scale,
+                             extra_k, extra_v, local_k, local_v, local_mask)
+    o, mx, l = _paged_oml_plain(q, k_pages, v_pages, tables, lengths, scale)
+    if extra_k is not None:
+        o, l = _fold_self_key(o, mx, l, q.float() * scale, extra_k, extra_v)
     if local_k is not None:
         o, l = _fold_local(o, mx, l, q.float() * scale, local_k, local_v,
                            local_mask)

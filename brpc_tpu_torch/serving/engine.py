@@ -22,10 +22,22 @@ token streams to its caller per step.
     its buffered tokens.
   * retire: a request that finished cleanly offers its materialised
     pages to the radix tree, so the next prompt sharing the prefix hits.
+  * speculative mode (``draft_runner=``, a proposer from
+    ``serving/speculative.py`` or a model runner): each iteration
+    PROPOSES draft branches per slot, leases their pages (branch 0
+    appended in-sequence by ``store.speculate``, side branches on
+    ``store.fork``s), VERIFIES every row of every slot in ONE
+    ``runner.verify`` call of fixed shape ``[num_slots, draft_len + 1]``
+    under an ancestry mask, and COMMITS the longest greedy-matching
+    chain per slot: its K/V rows land in one ``write_kv_batch``, the
+    rejected tail rolls back, and the accepted tokens plus the target's
+    bonus token stream out.  The streams equal the plain step's.  A
+    request may opt out (``submit(..., speculative=False)``); when no
+    slot has a proposal the iteration is a plain step.
 
 Not in this port yet (see ROADMAP.md): the native token ring, rpcz
-spans and host-CPU accounting, speculative decoding, supervisor crash
-hand-off, fault sites and the legacy step-function adapter.
+spans and host-CPU accounting, supervisor crash hand-off, fault sites
+and the legacy step-function adapter.
 """
 from __future__ import annotations
 
@@ -40,6 +52,8 @@ import numpy as np
 
 from .. import errors
 from ..device import resolve_device
+from ..ops.paged_attention import MAX_LOCAL_WIDTH
+from .speculative import as_proposer
 
 _req_ids = itertools.count(1)
 _log = logging.getLogger(__name__)
@@ -91,14 +105,15 @@ class _EmitBuf:
 
 class _Request:
     __slots__ = ("req_id", "prompt", "max_new_tokens", "emit", "on_done",
-                 "buf", "_done_fired", "_mu")
+                 "buf", "speculative", "_done_fired", "_mu")
 
     def __init__(self, prompt: Sequence[int], max_new_tokens: int,
                  emit: Callable[[int], None], on_done: Optional[Callable],
-                 emit_buffer: int):
+                 emit_buffer: int, speculative: bool = True):
         self.req_id = next(_req_ids)
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
+        self.speculative = bool(speculative)
         self.emit = emit
         self.on_done = on_done
         self.buf = _EmitBuf(emit_buffer)
@@ -123,7 +138,8 @@ class _Request:
 
 
 class _Slot:
-    __slots__ = ("req", "seq", "last_token", "position", "generated")
+    __slots__ = ("req", "seq", "last_token", "position", "generated",
+                 "spec_steps", "spec_proposed", "spec_accepted")
 
     def __init__(self, req: _Request, seq):
         self.req = req
@@ -131,6 +147,24 @@ class _Slot:
         self.last_token = req.prompt[-1]
         self.position = len(req.prompt)
         self.generated = 0
+        self.spec_steps = 0           # verify iterations ridden
+        self.spec_proposed = 0        # draft tokens proposed
+        self.spec_accepted = 0        # draft tokens accepted
+
+
+class _SpecPlan:
+    """One slot's draft lease for one verify iteration: the proposed
+    branches, the forks holding the side branches' pages, and each
+    branch's rows inside the slot's block of the verify batch."""
+
+    __slots__ = ("slot", "base", "branches", "forks", "rows")
+
+    def __init__(self, slot: _Slot):
+        self.slot = slot
+        self.base = slot.position     # len(seq.tokens) before the draft
+        self.branches: list = []      # token chains, branch 0 in-seq
+        self.forks: list = []         # a KVSeq per side branch
+        self.rows: list = []          # per branch: its row indices
 
 
 class DecodeEngine:
@@ -142,6 +176,7 @@ class DecodeEngine:
                  max_pages_per_slot: int = 64,
                  prefill_buckets: Sequence[int] = (16, 64, 256, 1024, 4096),
                  eos_token: Optional[int] = None, emit_buffer: int = 256,
+                 draft_runner=None, draft_len: int = 4,
                  device=None, name: str = "engine"):
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
@@ -157,6 +192,18 @@ class DecodeEngine:
         if runner.kv_bytes_per_token <= 0 or not runner.wants_pages:
             raise ValueError("the runner must write packed K/V rows over "
                              "page tables (a vector-KV ModelRunner)")
+        # speculative decoding: a draft proposer turns the step into
+        # propose -> verify -> commit; without one the plain step runs
+        self._draft = as_proposer(draft_runner)
+        self.draft_len = int(draft_len)
+        if self._draft is not None:
+            if self.draft_len < 1:
+                raise ValueError("draft_len must be >= 1")
+            if self.draft_len + 1 > MAX_LOCAL_WIDTH:
+                raise ValueError(
+                    f"draft_len + 1 = {self.draft_len + 1} exceeds the "
+                    f"paged-attention kernel's local block "
+                    f"({MAX_LOCAL_WIDTH} rows)")
         self.runner = runner
         self.store = store
         runner.bind(store)
@@ -172,6 +219,13 @@ class DecodeEngine:
         self.retired = 0
         self.admit_errors = 0
         self.emit_cut = 0
+        self.verify_calls = 0
+        self.verify_seconds = 0.0
+        self.propose_seconds = 0.0
+        self.spec_steps = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_tokens = 0
         self._cv = threading.Condition(threading.Lock())
         self._slots: list[Optional[_Slot]] = [None] * self.num_slots
         self._waiters: deque[_Request] = deque()
@@ -187,11 +241,14 @@ class DecodeEngine:
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
                emit: Callable[[int], None],
-               on_done: Optional[Callable] = None) -> int:
+               on_done: Optional[Callable] = None, *,
+               speculative: bool = True) -> int:
         """Queue a request for the next step boundary with a free slot.
-        Returns the request id; ``on_done(err)`` fires exactly once."""
+        Returns the request id; ``on_done(err)`` fires exactly once.
+        ``speculative=False`` keeps a speculative engine from proposing
+        for this request (it rides the verify batch as a plain row)."""
         req = _Request(prompt, min(int(max_new_tokens), MAX_NEW_TOKENS_CAP),
-                       emit, on_done, self.emit_buffer)
+                       emit, on_done, self.emit_buffer, speculative)
         if req.max_new_tokens <= 0:
             req.finish(errors.RpcError(errors.EREQUEST,
                                        "max_new_tokens must be > 0"))
@@ -296,11 +353,9 @@ class DecodeEngine:
         padded = np.zeros((bucket,), np.int32)
         padded[:n] = suffix
         positions = slot.seq.prefill_from + np.arange(bucket, dtype=np.int32)
-        pages_row = np.full((self.max_pages_per_slot,), -1, np.int32)
-        ids = slot.seq.page_ids()
-        pages_row[:len(ids)] = ids[:self.max_pages_per_slot]
         try:
-            self.runner.prefill(padded, positions, pages_row, seq=slot.seq)
+            self.runner.prefill(padded, positions, self._table_row(slot.seq),
+                                seq=slot.seq)
         except Exception as e:
             _log.exception("prefill failed")
             self._retire(i, errors.RpcError(
@@ -308,12 +363,18 @@ class DecodeEngine:
 
     # ---- the step loop ----
 
+    def _table_row(self, seq) -> np.ndarray:
+        """`seq`'s page ids as one fixed-width table row, -1 padded."""
+        row = np.full((self.max_pages_per_slot,), -1, np.int32)
+        ids = seq.page_ids()[:self.max_pages_per_slot]
+        row[:len(ids)] = ids
+        return row
+
     def _gather_page_tables(self, active) -> np.ndarray:
         table = np.full((self.num_slots, self.max_pages_per_slot), -1,
                         np.int32)
         for i, s in active:
-            ids = s.seq.page_ids()
-            table[i, :len(ids)] = ids[:self.max_pages_per_slot]
+            table[i] = self._table_row(s.seq)
         return table
 
     def _loop(self) -> None:
@@ -340,7 +401,10 @@ class DecodeEngine:
                     if not self._waiters:
                         self._cv.wait(0.25)
                     continue
-            self._step(active)
+            if self._draft is not None:
+                self._spec_step(active)
+            else:
+                self._step(active)
 
     def _step(self, active) -> None:
         """One decode iteration across every active slot."""
@@ -384,34 +448,277 @@ class DecodeEngine:
             s.position += 1
             s.generated += 1
             self.tokens_out += 1
-            try:
-                self.store.extend(s.seq, nxt)
-            except MemoryError as e:
-                self._retire(i, errors.RpcError(
-                    errors.ELIMIT, f"KV page alloc failed: {e}"))
+            if not self._extend(i, s, nxt):
                 continue
+            if self._page_overflow(i, s):
+                continue
+            self._emit_run(i, s, [nxt])
+
+    def _extend(self, i: int, s: _Slot, tok: int) -> bool:
+        """Append `tok` to slot i's sequence; on failure retire the slot
+        (ELIMIT when the pool is out of pages) and return False."""
+        try:
+            self.store.extend(s.seq, tok)
+            return True
+        except MemoryError as e:
+            err = errors.RpcError(errors.ELIMIT,
+                                  f"KV page alloc failed: {e}")
+        except Exception as e:
+            err = errors.RpcError(
+                errors.EINTERNAL,
+                f"KV extend failed: {type(e).__name__}: {e}")
+        self._retire(i, err)
+        return False
+
+    def _page_overflow(self, i: int, s: _Slot) -> bool:
+        """Retire slot i with ELIMIT when its sequence outgrew the fixed
+        page table."""
+        if len(s.seq.pages) <= self.max_pages_per_slot:
+            return False
+        self._retire(i, errors.RpcError(
+            errors.ELIMIT,
+            f"page table overflow (> {self.max_pages_per_slot} pages)"))
+        return True
+
+    def _emit_run(self, i: int, s: _Slot, toks: list) -> None:
+        """Stream slot i's tokens of this iteration, then retire it if it
+        is done.  A consumer that stopped draining is cut here, without
+        the step loop ever blocking in a write."""
+        if not all(s.req.buf.push(t) for t in toks):
+            self.emit_cut += 1
+            self._retire(i, errors.RpcError(
+                errors.EOVERCROWDED,
+                "slow stream consumer: emit buffer overflow"))
+        elif s.generated >= s.req.max_new_tokens or \
+                (self.eos_token is not None and toks[-1] == self.eos_token):
+            self._retire(i, None)
+
+    # ---- speculative decoding ----
+
+    def _spec_release(self, plan: _SpecPlan) -> None:
+        """Return one slot's draft lease: roll the sequence back to its
+        length before the draft (unless its slot was released meanwhile)
+        and retire every fork.  Runs on every exit that does not commit,
+        so no path leaks a draft page."""
+        seq = plan.slot.seq
+        if seq is not None and not seq.retired \
+                and len(seq.tokens) > plan.base:
+            try:
+                self.store.rollback(seq, plan.base)
+            except Exception:
+                _log.exception("draft rollback failed")
+        for f in plan.forks:
+            if f is not None:
+                self.store.retire(f, cache=False)
+        plan.forks = []
+
+    def _spec_propose(self, s: _Slot) -> list:
+        """Draft branches for one slot, clamped to the verify rows, the
+        token budget (one token is the bonus) and the fixed page table.
+        Empty when the request opted out, has no headroom, or the
+        proposer has nothing: the slot then rides the verify batch as a
+        plain row."""
+        rem = s.req.max_new_tokens - s.generated
+        if not s.req.speculative or rem <= 1:
+            return []
+        avail = self.max_pages_per_slot * self.store.page_tokens \
+            - s.position - 1
+        cap = min(self.draft_len, rem - 1, avail)
+        if cap < 1:
+            return []
+        try:
+            branches = self._draft.propose(s.seq.tokens, cap)
+        except Exception:
+            _log.exception("draft proposer failed")
+            return []        # a broken proposer costs speed, never output
+        kept, total = [], 0
+        for b in branches:
+            b = [int(t) for t in b][:cap - total]
+            if not b:
+                break
+            kept.append(b)
+            total += len(b)
+        return kept
+
+    def _spec_step(self, active) -> None:
+        """One speculative iteration (see the module docstring).  Slots
+        at different accept depths, and slots with no draft, share the
+        one fixed-shape verify batch."""
+        k1 = self.draft_len + 1
+        # ---- propose + lease ----
+        t0 = time.perf_counter()
+        plans: dict[int, _SpecPlan] = {}
+        for i, s in active:
+            plan = plans[i] = _SpecPlan(s)
+            branches = self._spec_propose(s)
+            if not branches:
+                continue
+            try:
+                # forks first, so they share only the pre-draft pages; the
+                # in-sequence draft then copies the shared tail page
+                for b in branches[1:]:
+                    f = self.store.fork(s.seq)
+                    plan.forks.append(f)
+                    self.store.speculate(f, b)
+                self.store.speculate(s.seq, branches[0])
+                plan.branches = branches
+            except Exception:
+                # lease pressure: this slot degrades to a plain row
+                self._spec_release(plan)
+        self.propose_seconds += time.perf_counter() - t0
+        if not any(p.branches for p in plans.values()):
+            # no draft anywhere: a (draft_len+1)-wide verify would pay
+            # ~k1x the work for one token per slot
+            self._step(active)
+            return
+        # ---- the fixed-shape verify batch ----
+        n = self.num_slots
+        tok = np.zeros((n, k1), np.int32)
+        pos = np.zeros((n, k1), np.int32)
+        tables = np.full((n * k1, self.max_pages_per_slot), -1, np.int32)
+        base_len = np.zeros((n * k1,), np.int32)
+        mask = np.zeros((n, k1, k1), bool)
+        for i, s in active:
+            plan = plans[i]
+            main = self._table_row(s.seq)
+            # row 0: the plain step's query (the last token), over the
+            # materialised keys 0..position-2
+            tok[i, 0] = s.last_token
+            pos[i, 0] = s.position
+            tables[i * k1] = main
+            base_len[i * k1] = s.position - 1
+            mask[i, 0, 0] = True
+            r = 1
+            for bi, b in enumerate(plan.branches):
+                ids = main if bi == 0 else self._table_row(plan.forks[bi - 1])
+                rows: list = []
+                for c, t in enumerate(b):
+                    tok[i, r] = t
+                    pos[i, r] = s.position + c + 1
+                    tables[i * k1 + r] = ids
+                    base_len[i * k1 + r] = s.position - 1
+                    # the root, the branch's ancestors, itself
+                    mask[i, r, [0, *rows, r]] = True
+                    rows.append(r)
+                    r += 1
+                plan.rows.append(rows)
+        # ---- verify: every row of every slot, one call ----
+        t0 = time.perf_counter()
+        try:
+            out, kv_rows = self.runner.verify(tok, pos, tables, base_len,
+                                              mask)
+        except Exception as e:
+            _log.exception("speculative verify failed")
+            # the draft leases first: a failed verify leaves no draft
+            # page behind
+            for plan in plans.values():
+                self._spec_release(plan)
+            err = errors.RpcError(
+                errors.EINTERNAL,
+                f"speculative verify failed: {type(e).__name__}: {e}")
+            for i, _ in active:
+                self._retire(i, err)
+            return
+        # runner.verify returns host tokens, so the device work is done
+        dt = time.perf_counter() - t0
+        self.step_seconds += dt
+        self.verify_seconds += dt
+        self.steps += 1
+        self.verify_calls += 1
+        # ---- accept + commit ----
+        writes, owners = [], []
+        staged: dict[int, tuple] = {}
+        for i, s in active:
+            plan = plans[i]
+            if self._slots[i] is not s:
+                # an emitter cancelled it mid-verify; its release retired
+                # the sequence, the forks are still ours
+                self._spec_release(plan)
+                continue
+            # greedy tree walk: the true token after each row is the
+            # target's argmax there; the winner is the longest branch
+            # that matches it step by step
+            t_star = int(out[i, 0])
+            path, winner = [], -1
+            for bi, rows in enumerate(plan.rows):
+                if int(tok[i, rows[0]]) != t_star:
+                    continue
+                sel = [rows[0]]
+                for r in rows[1:]:
+                    if int(tok[i, r]) != int(out[i, sel[-1]]):
+                        break
+                    sel.append(r)
+                if len(sel) > len(path):
+                    path, winner = sel, bi
+            bonus = int(out[i, path[-1]]) if path else t_star
+            toks = [int(tok[i, r]) for r in path] + [bonus]
+            if self.eos_token is not None and self.eos_token in toks:
+                toks = toks[:toks.index(self.eos_token) + 1]
+            toks = toks[:s.req.max_new_tokens - s.generated]
+            kept = min(len(toks), len(path))
+            try:
+                if winner > 0:
+                    # a side branch won: the slot adopts its fork; the
+                    # original, with branch 0's draft, retires uncached
+                    f = plan.forks[winner - 1]
+                    plan.forks[winner - 1] = None
+                    f.prefill_from = s.seq.prefill_from
+                    self.store.retire(s.seq, cache=False)
+                    s.seq = f
+                self.store.rollback(s.seq, plan.base + kept)
+                for f in plan.forks:
+                    if f is not None:
+                        self.store.retire(f, cache=False)
+                plan.forks = []
             except Exception as e:
+                self._spec_release(plan)
                 self._retire(i, errors.RpcError(
                     errors.EINTERNAL,
-                    f"KV extend failed: {type(e).__name__}: {e}"))
+                    f"draft commit failed: {type(e).__name__}: {e}"))
                 continue
-            if len(s.seq.pages) > self.max_pages_per_slot:
-                self._retire(i, errors.RpcError(
-                    errors.ELIMIT,
-                    f"page table overflow (> {self.max_pages_per_slot} "
-                    f"pages)"))
+            # row 0 (the query position, as the plain step writes it),
+            # then the accepted drafts: one run of rows for branch 0
+            idx = [0] + path[:kept]
+            rows = kv_rows[i, :kept + 1] if idx[-1] == kept \
+                else kv_rows[i, idx]
+            writes.append((s.seq, plan.base - 1, rows))
+            owners.append(i)
+            staged[i] = (toks, kept, sum(map(len, plan.branches)))
+        fails = self.store.write_kv_batch(writes) if writes else []
+        for wi, e in fails:
+            i = owners[wi]
+            staged.pop(i, None)
+            self._retire(i, errors.RpcError(
+                errors.EINTERNAL,
+                f"KV write failed: {type(e).__name__}: {e}"))
+        # ---- bookkeeping + emission ----
+        for i, s in active:
+            st = staged.get(i)
+            if st is None:
                 continue
-            if not s.req.buf.push(nxt):
-                # the consumer stopped draining: cut it here, without the
-                # step loop ever blocking in a write
-                self.emit_cut += 1
-                self._retire(i, errors.RpcError(
-                    errors.EOVERCROWDED,
-                    "slow stream consumer: emit buffer overflow"))
+            if self._slots[i] is not s:
+                # cancelled mid-commit: the release retired the sequence
+                # the slot held then; an adopted fork is still ours
+                if not s.seq.retired:
+                    self.store.retire(s.seq, cache=False)
                 continue
-            if s.generated >= s.req.max_new_tokens or \
-                    (self.eos_token is not None and nxt == self.eos_token):
-                self._retire(i, None)
+            toks, kept, proposed = st
+            if len(toks) > kept and not self._extend(i, s, toks[-1]):
+                continue             # the bonus token: the next query
+            if self._page_overflow(i, s):
+                continue
+            s.last_token = toks[-1]
+            s.position = len(s.seq.tokens)
+            s.generated += len(toks)
+            s.spec_steps += 1
+            s.spec_proposed += proposed
+            s.spec_accepted += kept
+            self.tokens_out += len(toks)
+            self.spec_steps += 1
+            self.spec_proposed += proposed
+            self.spec_accepted += kept
+            self.spec_tokens += len(toks)
+            self._emit_run(i, s, toks)
 
     def _release_slot_locked(self, i: int, cache_ok: bool = True):
         """Free slot i under the cv, retiring its sequence exactly once
@@ -471,6 +778,10 @@ class DecodeEngine:
                     "position": s.position,
                     "pages": len(s.seq.pages),
                     "prefix_hit": s.seq.prefix_hit_tokens,
+                    "speculative": s.req.speculative,
+                    "spec_steps": s.spec_steps,
+                    "spec_proposed": s.spec_proposed,
+                    "spec_accepted": s.spec_accepted,
                 } for s in self._slots]
             queued = len(self._waiters) + self._admitting
         return {
@@ -484,6 +795,21 @@ class DecodeEngine:
             "admit_errors": self.admit_errors,
             "emit_buffer": self.emit_buffer,
             "emit_cut": self.emit_cut,
+            "speculative": None if self._draft is None else {
+                "proposer": getattr(self._draft, "name", "draft"),
+                "draft_len": self.draft_len,
+                "verify_calls": self.verify_calls,
+                "verify_seconds": self.verify_seconds,
+                "propose_seconds": self.propose_seconds,
+                "spec_steps": self.spec_steps,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "spec_tokens": self.spec_tokens,
+                "accept_rate": (self.spec_accepted / self.spec_proposed
+                                if self.spec_proposed else 0.0),
+                "tokens_per_verify": (self.spec_tokens / self.spec_steps
+                                      if self.spec_steps else 0.0),
+            },
             "runner": self.runner.name,
             "kvcache": self.store.name,
             "device": str(self.device),

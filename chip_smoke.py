@@ -14,8 +14,12 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      flash kernel must have some;
   3. kernel phase: calls each kernel's wrapper on the card at the
      serving path's shapes (and the paged kernel at a ~2048-key
-     context) and holds it against its plain PyTorch version (f32 atol
-     1e-4, bf16 2e-2), timing kernel, plain version and -- for flash
+     context; its verify rows with the local draft block, chains and the
+     engine's draft trees with padded rows) and holds it against its
+     plain PyTorch version (f32 atol 1e-4, bf16 2e-2; the paged kernel
+     against both the split-K plain version at the kernel's own split
+     plan and the gather plain version, at 2 CUDA launches per call),
+     timing kernel, plain version and -- for flash
      attention -- ``scaled_dot_product_attention`` (timed here only; the
      port never calls it) with CUDA events, both as issued eagerly and
      replayed from a CUDA graph (device time); each row carries its
@@ -31,7 +35,17 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      both kernels launched on the way (launch counts reset just before
      each serving run and read just after); then one more warm pass
      under ``torch.profiler`` for the device's busy share;
-  5. prints ``{"kernels": [...]}``, the card line, and as the LAST line
+  5. speculative serving phase: the wide configuration's prompts and
+     dense oracle again through a speculative ``DecodeEngine``
+     (draft_len 4), once with ``NGramProposer`` and once with a width-2
+     ``DraftModelProposer`` over the target's own weights (the flash
+     kernel on every proposal, the side branch on a fork): every stream
+     equal to the oracle cold and warm, drafts accepted, every verify
+     call at 2 CUDA launches of the paged kernel per layer, no live
+     sequence and the page pool at its baseline after each run; tokens
+     per verify > 1, forks > 0 and flash launches > 0 for the draft
+     model; printed beside the plain run's numbers;
+  6. prints ``{"kernels": [...]}``, the card line, and as the LAST line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check, build or launch exits non-zero before the result.
@@ -157,14 +171,44 @@ def launches_per_call(fn):
 
 # ---- kernel phase: paged attention -----------------------------------------
 
+# The verify groups of the engine's draft tree at draft_len 4 under a
+# width-2 draft model: the root (the last token), branch 0 (rows 1, 2) and
+# branch 1 (rows 3, 4), each row seeing the root, its branch's earlier
+# rows and itself; then slots with less: a chain of two, no draft, and an
+# empty slot.  Padded rows see nothing (no page entry, no local key).
+TREE_GROUPS = (
+    [[0], [0, 1], [0, 1, 2], [0, 3], [0, 3, 4]],
+    [[0], [0, 1], [0, 1, 2], None, None],
+    [[0], None, None, None, None],
+    [None] * 5,
+)
+
+
+def local_masks(g, w, tree):
+    """[g, w, w] ancestry masks: lower-triangular chains, or the engine's
+    tree groups (TREE_GROUPS, cycled).  Returns the masks and, per row,
+    whether it is a real (unpadded) row."""
+    if not tree:
+        return (np.tril(np.ones((w, w), bool))[None].repeat(g, 0),
+                np.ones(g * w, bool))
+    mask = np.zeros((g, w, w), bool)
+    for gi in range(g):
+        for r, vis in enumerate(TREE_GROUPS[gi % len(TREE_GROUPS)]):
+            if vis is not None:
+                mask[gi, r, vis] = True
+    return mask, mask.any(axis=2).reshape(-1)
+
+
 def paged_case(dev, cfg, *, page_tokens, n, mp, prefill, extra, seed,
-               prompt_len, standalone=False):
+               prompt_len, standalone=False, w=4, tree=False):
     """Inputs shaped as the serving path gives them to the paged kernel:
     the last layer's K/V slices of a real PagePool arena, decode rows
-    with their own tables at ~prompt_len keys, or one prefill bucket of
-    causal rows over one table.  ``standalone``: an arena tensor of the
-    same layout allocated here, for more pages than a pool's block class
-    holds (the long-context row)."""
+    with their own tables at ~prompt_len keys, one prefill bucket of
+    causal rows over one table, or verify groups of ``w`` rows sharing a
+    table with a local key block (chains, or with ``tree`` the engine's
+    draft trees with padded rows).  ``standalone``: an arena tensor of
+    the same layout allocated here, for more pages than a pool's block
+    class holds (the long-context row)."""
     import torch
     import brpc_tpu_torch.kvcache as kvcache
     import brpc_tpu_torch.ops.paged_attention as pa
@@ -173,8 +217,8 @@ def paged_case(dev, cfg, *, page_tokens, n, mp, prefill, extra, seed,
                        cfg.n_layers, page_tokens)
     need = -(-prompt_len // t) + 1
     # rows sharing one sequence's table: all of a prefill bucket, the
-    # 4 draft rows of a verify group, one row per decode slot
-    per = n if prefill else (4 if extra == "local_block" else 1)
+    # w rows of a verify group, one row per decode slot
+    per = n if prefill else (w if extra == "local_block" else 1)
     if standalone:
         pool, pages = None, []
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -195,6 +239,10 @@ def paged_case(dev, cfg, *, page_tokens, n, mp, prefill, extra, seed,
     tables[:, :need] = np.repeat(flat.reshape(n // per, need), per, axis=0)
     if prefill:
         lengths = np.minimum(np.arange(1, n + 1, dtype=np.int32), need * t)
+    elif extra == "local_block":
+        # a group's rows share the slot's materialised length
+        lengths = np.repeat(prompt_len + rng.integers(0, t, n // w),
+                            w).astype(np.int32)
     else:
         lengths = (prompt_len + rng.integers(0, t, n)).astype(np.int32)
     q = torch.from_numpy(rng.standard_normal((n, h, d))
@@ -205,12 +253,15 @@ def paged_case(dev, cfg, *, page_tokens, n, mp, prefill, extra, seed,
             kw[name] = torch.from_numpy(rng.standard_normal((n, hkv, d))
                                         .astype(np.float32)).to(dev)
     elif extra == "local_block":
-        g, w = n // 4, 4
-        for name in ("local_k", "local_v"):
-            kw[name] = torch.from_numpy(rng.standard_normal((g, w, hkv, d))
-                                        .astype(np.float32)).to(dev)
-        kw["local_mask"] = torch.from_numpy(
-            np.tril(np.ones((w, w), bool))[None].repeat(g, 0)).to(dev)
+        g = n // w
+        mask, real = local_masks(g, w, tree)
+        tables[~real] = -1
+        lengths[~real] = 0
+        # K and V rows of one projection output, as strided views
+        kvrows = torch.from_numpy(rng.standard_normal((g, w, 2, hkv, d))
+                                  .astype(np.float32)).to(dev)
+        kw["local_k"], kw["local_v"] = kvrows[:, :, 0], kvrows[:, :, 1]
+        kw["local_mask"] = torch.from_numpy(mask).to(dev)
     args = (q, kv[:, :, L - 1, 0], kv[:, :, L - 1, 1],
             torch.from_numpy(tables).to(dev),
             torch.from_numpy(lengths).to(dev))
@@ -221,6 +272,8 @@ def paged_case(dev, cfg, *, page_tokens, n, mp, prefill, extra, seed,
     keys = sum(sum(1 for j in range(int(lengths[i]))
                    if tables[i, j // t] >= 0) for i in range(n))
     extra_bytes = sum(x.numel() * x.element_size() for x in kw.values())
+    if "local_mask" in kw:
+        keys += int(kw["local_mask"].sum())
     nbytes = (len(seen) * hkv * d * 4 * 2 + 2 * q.numel() * 4
               + tables.nbytes + lengths.nbytes + extra_bytes)
     flops = 4 * keys * h * d
@@ -228,39 +281,37 @@ def paged_case(dev, cfg, *, page_tokens, n, mp, prefill, extra, seed,
 
 
 def run_paged(dev, label, cfg, **shape):
-    import math
-
     import torch
     import brpc_tpu_torch.ops.paged_attention as pa
     pool, pages, args, kw, nbytes, flops = paged_case(dev, cfg, **shape)
-    scale = 1.0 / math.sqrt(cfg.head_dim)
-    # the CUDA kernels alone (split + combine, self key folded); for the
-    # verify path the raw (o, m, l), without the plain-torch local fold
-    kernel_kw = ({"raw": True} if "local_k" in kw else
-                 {k: kw[k] for k in ("extra_k", "extra_v") if k in kw})
     try:
-        out = pa.paged_attention(*args, **kw)
-        torch.cuda.synchronize()
-        ref = pa.paged_attention_plain(*args, **kw)
-        err = float((out - ref).abs().max())
-        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
-        check(err <= TOL["float32"],
-              f"{label}: kernel vs plain max abs err {err}")
-        ms, eager_ms = measure(lambda: pa.paged_attention(*args, **kw))
-        plain_ms, eager_plain_ms = measure(
-            lambda: pa.paged_attention_plain(*args, **kw))
-        kernel_only_ms, _ = measure(
-            lambda: pa._paged_kernel(*args, scale, **kernel_kw))
-        per_call, names = launches_per_call(
-            lambda: pa.paged_attention(*args, **kw))
         s_split, pps = pa.split_plan(
             args[0].shape[0], args[1].shape[2], args[3].shape[1],
             torch.cuda.get_device_properties(dev).multi_processor_count)
+        out = pa.paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+        # the kernels' own arithmetic (the same ranges, the combine's
+        # order), and the independent gather + softmax version
+        ref = pa.paged_attention_split_plain(*args, **kw, s_split=s_split)
+        err = float((out - ref).abs().max())
+        err_gather = float(
+            (out - pa.paged_attention_plain(*args, **kw)).abs().max())
+        check(max(err, err_gather) <= TOL["float32"],
+              f"{label}: kernel vs plain max abs err {err} (split-K plain)"
+              f", {err_gather} (gather plain)")
+        ms, eager_ms = measure(lambda: pa.paged_attention(*args, **kw))
+        plain_ms, eager_plain_ms = measure(
+            lambda: pa.paged_attention_plain(*args, **kw))
+        per_call, names = launches_per_call(
+            lambda: pa.paged_attention(*args, **kw))
+        check(per_call == 2, f"{label}: {per_call} CUDA launches per call "
+                             f"({names}), not 2")
     finally:
         for p in pages:
             pool.unref(p)
     return {"shape": label, "dtype": "float32", "max_abs_err": err,
-            "ms": ms, "kernel_only_ms": kernel_only_ms,
+            "max_abs_err_gather_plain": err_gather, "ms": ms,
             "eager_ms": eager_ms, "plain_ms": plain_ms,
             "eager_plain_ms": eager_plain_ms, "library_ms": None,
             "cuda_launches_per_call": per_call, "device_ops": names,
@@ -369,10 +420,27 @@ def profile_window(fn):
                          "device_ms": dev_us(e) / 1e3} for e in top]}
 
 
+def generate_all(engine, prompts, label):
+    """Submit every prompt at once; wait for every stream.  Returns the
+    streams; any error or a hang fails the run."""
+    recs = []
+    for p in prompts:
+        rec = {"toks": [], "errs": [], "ev": threading.Event()}
+        engine.submit(p, NEW_TOKENS, rec["toks"].append,
+                      lambda e, r=rec: (r["errs"].append(e), r["ev"].set()))
+        recs.append(rec)
+    for rec in recs:
+        check(rec["ev"].wait(300), f"{label}: a generation hung")
+        check(rec["errs"] == [None], f"{label}: {rec['errs']}")
+    return [rec["toks"] for rec in recs]
+
+
 def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
           max_blocks, prompt_len, buckets, seed):
     """8 concurrent requests, cold then warm, through the port's engine;
-    every stream equal to dense_generate on the card."""
+    every stream equal to dense_generate on the card.  Returns the
+    record and, for the speculative runs, the parameters, prompts and
+    oracle streams."""
     import torch
     import brpc_tpu_torch.models as models
     import brpc_tpu_torch.ops.attention as attn
@@ -395,17 +463,7 @@ def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
                for _ in range(N_REQUESTS)]
 
     def run_all():
-        recs = []
-        for p in prompts:
-            rec = {"toks": [], "errs": [], "ev": threading.Event()}
-            engine.submit(p, NEW_TOKENS, rec["toks"].append,
-                          lambda e, r=rec: (r["errs"].append(e),
-                                            r["ev"].set()))
-            recs.append(rec)
-        for rec in recs:
-            check(rec["ev"].wait(300), f"{label}: a generation hung")
-            check(rec["errs"] == [None], f"{label}: {rec['errs']}")
-        return [rec["toks"] for rec in recs]
+        return generate_all(engine, prompts, label)
 
     try:
         torch.cuda.synchronize()
@@ -463,7 +521,11 @@ def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
           bpool.stats()["classes"] == free0,
           f"{label}: the page pool did not return to its baseline")
     toks = N_REQUESTS * NEW_TOKENS
-    return {
+    ctx = {"params": params, "prompts": prompts, "oracle": oracle,
+           "geometry": {"page_tokens": page_tokens, "num_slots": num_slots,
+                        "max_pages": max_pages, "max_blocks": max_blocks,
+                        "buckets": buckets}}
+    return ctx, {
         "config": label, "cfg": cfg.__dict__,
         "page_tokens": page_tokens, "num_slots": num_slots,
         "requests": N_REQUESTS, "prompt_len": prompt_len,
@@ -477,6 +539,94 @@ def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
         "launches": launches,
         "paged_launches_engine": paged_serving,
         "paged_cuda_launches_engine": paged_cuda_serving,
+        "warm_profile": prof,
+    }
+
+
+def serve_spec(dev, label, cfg, ctx, proposer, draft_len):
+    """The plain run's prompts through a speculative engine (``proposer``
+    drafts, ``draft_len`` rows per slot), cold then warm, every stream
+    equal to the plain run's dense oracle; the verify calls reach the
+    paged kernels at 2 CUDA launches each; no sequence and no page is
+    left behind."""
+    import torch
+    import brpc_tpu_torch.models as models
+    import brpc_tpu_torch.ops.attention as attn
+    import brpc_tpu_torch.ops.paged_attention as pa
+    import brpc_tpu_torch.serving as serving
+    geo = ctx["geometry"]
+    prompts, oracle = ctx["prompts"], ctx["oracle"]
+    store = models.make_store_for(cfg, page_tokens=geo["page_tokens"],
+                                  max_blocks=geo["max_blocks"], device=dev,
+                                  name=label)
+    bpool = store.pagepool.pool
+    free0 = bpool.stats()["classes"]
+    runner = models.TransformerRunner(ctx["params"], cfg, store=store,
+                                      device=dev, name=label)
+    engine = serving.DecodeEngine(
+        runner=runner, store=store, num_slots=geo["num_slots"],
+        max_pages_per_slot=geo["max_pages"],
+        prefill_buckets=geo["buckets"], draft_runner=proposer,
+        draft_len=draft_len, device=dev, name=label)
+    try:
+        torch.cuda.synchronize()
+        pa.paged_attention.launches = 0
+        pa.paged_attention.cuda_launches = 0
+        attn.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        cold = generate_all(engine, prompts, label)
+        t_cold = time.perf_counter() - t0
+        hit0 = store.hit_tokens
+        t0 = time.perf_counter()
+        warm = generate_all(engine, prompts, label)
+        t_warm = time.perf_counter() - t0
+        hit = store.hit_tokens - hit0
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "flash_attention": attn.flash_attention.launches}
+        paged_cuda = pa.paged_attention.cuda_launches
+        check(engine.join_idle(30), f"{label}: the engine did not go idle")
+        st = engine.stats()
+        sp = st["speculative"]
+        live = store.stats()["live_seqs"]
+        forks = store.stats()["forks"]
+        for i, (c, o) in enumerate(zip(cold, oracle)):
+            check(c == o, f"{label}: request {i} streamed {c}, dense "
+                          f"oracle {o}")
+        check(warm == cold, f"{label}: warm streams differ from cold")
+        check(hit > 0, f"{label}: the warm pass hit no cached prefix")
+        check(sp["spec_accepted"] > 0, f"{label}: no draft was accepted")
+        check(live == 0, f"{label}: {live} sequences still live")
+        # every verify call is n_layers paged calls of 2 CUDA launches
+        check(sp["verify_calls"] > 0 and launches["paged_attention"]
+              >= sp["verify_calls"] * cfg.n_layers
+              and paged_cuda == 2 * launches["paged_attention"],
+              f"{label}: {sp['verify_calls']} verify calls, "
+              f"{launches['paged_attention']} paged calls, {paged_cuda} "
+              f"CUDA launches")
+        again, prof = profile_window(
+            lambda: generate_all(engine, prompts, label))
+        check(again == cold, f"{label}: profiled pass streams differ")
+    finally:
+        engine.close()
+        store.clear()
+    check(store.pagepool.blocks_leased() == 0 and
+          bpool.stats()["classes"] == free0,
+          f"{label}: the page pool did not return to its baseline")
+    toks = N_REQUESTS * NEW_TOKENS
+    return {
+        "config": label, "proposer": sp["proposer"], "draft_len": draft_len,
+        "cold_s": t_cold, "warm_s": t_warm,
+        "cold_tokens_per_s": toks / t_cold, "warm_tokens_per_s": toks / t_warm,
+        "mean_step_ms": 1e3 * st["step_seconds"] / max(1, st["steps"]),
+        "mean_verify_ms": 1e3 * sp["verify_seconds"]
+        / max(1, sp["verify_calls"]),
+        "mean_propose_ms": 1e3 * sp["propose_seconds"]
+        / max(1, sp["verify_calls"]),
+        "steps": st["steps"], "verify_calls": sp["verify_calls"],
+        "accept_rate": sp["accept_rate"],
+        "tokens_per_verify": sp["tokens_per_verify"],
+        "spec": sp, "forks": forks, "warm_prefix_hit_tokens": hit,
+        "launches": launches, "paged_cuda_launches": paged_cuda,
         "warm_profile": prof,
     }
 
@@ -539,6 +689,12 @@ def main() -> int:
         run_paged(dev, "b verify N32 MP16 T16 +local", cfg_b,
                   page_tokens=16, n=32, mp=16, prefill=False,
                   extra="local_block", seed=5, prompt_len=200),
+        # the engine's verify: 8 slots x (4 drafts + 1), draft trees and
+        # padded rows
+        run_paged(dev, "b verify N40 MP16 T16 +local tree", cfg_b,
+                  page_tokens=16, n=40, mp=16, prefill=False,
+                  extra="local_block", seed=7, prompt_len=200, w=5,
+                  tree=True),
         # a long context: split-K spreads 128 page entries over the SMs
         run_paged(dev, "b decode N8 MP128 T16 +self (~2048 keys)", cfg_b,
                   page_tokens=16, n=8, mp=128, prefill=False,
@@ -555,10 +711,8 @@ def main() -> int:
                   "bfloat16"),
     ]
     for row in paged + flash:
-        konly = (f" kernel-only {row['kernel_only_ms']:.4f}"
-                 if "kernel_only_ms" in row else "")
         print(f"kernel {row['shape']}: err {row['max_abs_err']:.3g} "
-              f"device ms {row['ms']:.4f}{konly} (eager "
+              f"device ms {row['ms']:.4f} (eager "
               f"{row['eager_ms']:.4f}) plain {row['plain_ms']:.4f} library "
               f"{row['library_ms']} bound {row['bound_ms']:.4f} "
               f"({row['bound_by']}, {row['bound_rate']}) achieved "
@@ -567,13 +721,13 @@ def main() -> int:
               flush=True)
 
     # -- serving phase, twice
-    served = [
-        serve(dev, "a", cfg_a, page_tokens=4, num_slots=4, max_pages=32,
-              max_blocks=32, prompt_len=64, buckets=(16, 64, 256), seed=11),
-        serve(dev, "b", cfg_b, page_tokens=16, num_slots=8, max_pages=16,
-              max_blocks=64, prompt_len=200, buckets=(16, 64, 256),
-              seed=12),
-    ]
+    _, served_a = serve(dev, "a", cfg_a, page_tokens=4, num_slots=4,
+                        max_pages=32, max_blocks=32, prompt_len=64,
+                        buckets=(16, 64, 256), seed=11)
+    ctx_b, served_b = serve(dev, "b", cfg_b, page_tokens=16, num_slots=8,
+                            max_pages=16, max_blocks=64, prompt_len=200,
+                            buckets=(16, 64, 256), seed=12)
+    served = [served_a, served_b]
     for r in served:
         print(f"serve {r['config']}: cold {r['cold_tokens_per_s']:.1f} tok/s"
               f" warm {r['warm_tokens_per_s']:.1f} tok/s, mean step "
@@ -584,10 +738,43 @@ def main() -> int:
               f"{r['launches']}, device busy (profiled warm pass) "
               f"{r['warm_profile']['device_busy_share']}", flush=True)
 
+    # -- speculative serving phase: (b), its prompts and oracle, twice
+    import brpc_tpu_torch.serving.speculative as spec
+    speculative = [
+        serve_spec(dev, "b spec ngram", cfg_b, ctx_b, spec.NGramProposer(),
+                   draft_len=4),
+        serve_spec(dev, "b spec draft-model", cfg_b, ctx_b,
+                   spec.DraftModelProposer(ctx_b["params"], cfg_b, width=2),
+                   draft_len=4),
+    ]
+    drafted = speculative[1]
+    check(drafted["tokens_per_verify"] > 1,
+          f"draft model: {drafted['tokens_per_verify']} tokens per verify")
+    check(drafted["forks"] > 0, "draft model: the tree took no fork")
+    check(drafted["launches"]["flash_attention"] > 0,
+          "draft model: the flash kernel was not launched")
+    for r in speculative:
+        print(f"serve {r['config']}: cold {r['cold_tokens_per_s']:.1f} tok/s"
+              f" warm {r['warm_tokens_per_s']:.1f} tok/s (plain b: cold "
+              f"{served_b['cold_tokens_per_s']:.1f}, warm "
+              f"{served_b['warm_tokens_per_s']:.1f}), mean step "
+              f"{r['mean_step_ms']:.3f} ms (plain b "
+              f"{served_b['mean_step_ms']:.3f}), verify "
+              f"{r['mean_verify_ms']:.3f} ms, propose "
+              f"{r['mean_propose_ms']:.3f} ms per verify, accept rate "
+              f"{r['accept_rate']:.3f}, tokens per verify "
+              f"{r['tokens_per_verify']:.3f}, verify calls "
+              f"{r['verify_calls']}, forks {r['forks']}, launches "
+              f"{r['launches']} ({r['paged_cuda_launches']} paged CUDA), "
+              f"device busy (profiled warm pass) "
+              f"{r['warm_profile']['device_busy_share']} (plain b "
+              f"{served_b['warm_profile']['device_busy_share']})",
+              flush=True)
+
     def entry(name, source, replaces, rows, main_row):
         m = rows[main_row]
         err = max(r["max_abs_err"] for r in rows)
-        launches = sum(r["launches"][name] for r in served)
+        launches = sum(r["launches"][name] for r in served + speculative)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "max_abs_diff": err,
@@ -610,7 +797,7 @@ def main() -> int:
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "sass": sass, "kernels": kernels,
-              "serving": served,
+              "serving": served, "speculative": speculative,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,
                   "flash_attention": attn.flash_attention.launches}}

@@ -24,10 +24,15 @@ from brpc_tpu_torch.kvcache import PagePool
 from brpc_tpu_torch.models import runner as T
 from brpc_tpu_torch.ops.attention import (flash_attention,
                                           flash_attention_plain)
-from brpc_tpu_torch.ops.paged_attention import (arena_kv_view,
+from brpc_tpu_torch.ops.paged_attention import (MAX_LOCAL_WIDTH,
+                                                arena_kv_view,
                                                 paged_attention,
-                                                paged_attention_plain)
+                                                paged_attention_plain,
+                                                paged_attention_split_plain,
+                                                split_plan)
 from brpc_tpu_torch.serving import DecodeEngine
+from brpc_tpu_torch.serving.speculative import (DraftModelProposer,
+                                                NGramProposer)
 
 pytestmark = pytest.mark.cuda
 
@@ -150,6 +155,117 @@ def test_paged_split_counts_match_plain(cuda, monkeypatch, s_split, extra):
             pool.unref(p)
 
 
+def _tree_masks(rng, g, w):
+    """Random draft trees, one per group: row 0 is the root, each later
+    row either padded (sees nothing) or the child of an earlier real row
+    (sees its ancestors and itself); every fourth group is all padding."""
+    mask = np.zeros((g, w, w), bool)
+    for gi in range(g):
+        if gi % 4 == 3:
+            continue
+        mask[gi, 0, 0] = True
+        for r in range(1, w):
+            real = [p for p in range(r) if mask[gi, p, p]]
+            if rng.random() < 0.25:
+                continue
+            mask[gi, r] = mask[gi, rng.choice(real)]
+            mask[gi, r, r] = True
+    return mask
+
+
+def _local_inputs(dev, rng, *, g, w, h, hkv, d, t, mp):
+    """Verify-shaped inputs: G groups of W rows, each group's rows on one
+    page table of a real PagePool arena at one length, the local K/V as
+    strided views of one [G, W, 2, Hkv, D] projection tensor, random tree
+    masks; padded rows have no page entry and length 0."""
+    n = g * w
+    pool = PagePool(page_bytes=t * 2 * hkv * d * 4, page_tokens=t,
+                    max_blocks=64, device=dev, name="t_cuda_local")
+    pages = [pool.alloc_page() for _ in range(g * mp)]
+    for p in pages:
+        pool.write_raw(p, rng.standard_normal(pool.page_bytes // 4)
+                       .astype(np.float32).view(np.uint8))
+    flat = np.asarray(pool.flat_ids([p.pid for p in pages]), np.int32)
+    kv = arena_kv_view(pool.arena(), t, 1, hkv, d)
+    mask = _tree_masks(rng, g, w)
+    real = mask.any(axis=2).reshape(n)
+    tables = np.repeat(flat.reshape(g, mp), w, axis=0)
+    lengths = np.repeat(rng.integers(1, mp * t + 1, g), w).astype(np.int32)
+    tables[~real] = -1
+    lengths[~real] = 0
+    rows = torch.from_numpy(rng.standard_normal((g, w, 2, hkv, d))
+                            .astype(np.float32)).to(dev)
+    args = (torch.from_numpy(rng.standard_normal((n, h, d))
+                             .astype(np.float32)).to(dev),
+            kv[:, :, 0, 0], kv[:, :, 0, 1],
+            torch.from_numpy(tables).to(dev),
+            torch.from_numpy(lengths).to(dev))
+    kw = {"local_k": rows[:, :, 0], "local_v": rows[:, :, 1],
+          "local_mask": torch.from_numpy(mask).to(dev)}
+    return pool, pages, args, kw, real
+
+
+@pytest.mark.parametrize("t", [4, 16])
+@pytest.mark.parametrize("d", [8, 128])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("w", [1, 3, 5, 9, 16])
+def test_local_block_kernel_matches_split_plain(cuda, w, group, d, t):
+    """The verify's local block folded in the combine kernel: random
+    draft trees and fully padded rows, against the split-K plain version
+    at the kernel's own split plan, in 2 CUDA launches."""
+    rng = np.random.default_rng(1000 * w + 100 * group + d + t)
+    hkv = 2
+    pool, pages, args, kw, real = _local_inputs(
+        cuda, rng, g=8, w=w, h=hkv * group, hkv=hkv, d=d, t=t, mp=4)
+    try:
+        before = (paged_attention.launches, paged_attention.cuda_launches)
+        out = paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert (paged_attention.launches, paged_attention.cuda_launches) \
+            == (before[0] + 1, before[1] + 2)
+        s_split, _ = split_plan(8 * w, hkv, 4, torch.cuda
+                                .get_device_properties(cuda)
+                                .multi_processor_count)
+        ref = paged_attention_split_plain(*args, **kw, s_split=s_split)
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+        torch.testing.assert_close(out, paged_attention_plain(*args, **kw),
+                                   atol=1e-4, rtol=0)
+        assert torch.equal(out[torch.from_numpy(~real).to(cuda)],
+                           torch.zeros_like(out[torch.from_numpy(~real)
+                                                .to(cuda)]))
+    finally:
+        for p in pages:
+            pool.unref(p)
+
+
+def test_local_block_kernel_refuses_what_it_does_not_take(cuda):
+    """Local K/V rows off 16 bytes, and a block wider than the kernel's
+    MAX_LOCAL_WIDTH, raise before any launch."""
+    rng = np.random.default_rng(5)
+    pool, pages, args, kw, _ = _local_inputs(cuda, rng, g=2, w=4, h=4,
+                                             hkv=2, d=8, t=4, mp=2)
+    try:
+        base = torch.zeros((2 * 4 * 2 * 8 + 1,), device=cuda)
+        bad = dict(kw, local_k=base[1:].view(2, 4, 2, 8),
+                   local_v=base[1:].view(2, 4, 2, 8))
+        with pytest.raises(ValueError, match="aligned"):
+            paged_attention(*args, **bad)
+        w = MAX_LOCAL_WIDTH + 1
+        wide = {"local_k": torch.zeros((1, w, 2, 8), device=cuda),
+                "local_v": torch.zeros((1, w, 2, 8), device=cuda),
+                "local_mask": torch.ones((1, w, w), dtype=torch.bool,
+                                         device=cuda)}
+        q = torch.zeros((w, 4, 8), device=cuda)
+        tables = torch.full((w, 2), -1, dtype=torch.int32, device=cuda)
+        lengths = torch.zeros((w,), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="exceeds"):
+            paged_attention(q, args[1], args[2], tables, lengths, **wide)
+    finally:
+        for p in pages:
+            pool.unref(p)
+
+
 def test_paged_kernel_refuses_unaligned_pages(cuda):
     """Pages stream in 16-byte copies: a page base off 16 bytes raises
     rather than reading misaligned."""
@@ -250,6 +366,45 @@ def test_engine_on_card_streams_the_dense_oracle(cuda):
                 assert toks == T.dense_generate(params, cfg, p, 6,
                                                 device=cuda)
         assert store.hit_tokens > 0
+    finally:
+        eng.close()
+        store.clear()
+
+
+@pytest.mark.parametrize("proposer", ["ngram", "draft-model"])
+def test_speculative_engine_on_card_streams_the_dense_oracle(cuda,
+                                                             proposer):
+    """The speculative engine on the card: every verify call reaches the
+    paged kernels at 2 CUDA launches, and the streams equal the dense
+    oracle's, cold and warm, with no sequence left live."""
+    cfg = T.TransformerConfig()
+    params = T.init_runner_params(cfg, 2, device=cuda)
+    store = T.make_store_for(cfg, page_tokens=4, max_blocks=16, device=cuda,
+                             name="t_cuda_spec")
+    runner = T.TransformerRunner(params, cfg, store=store, device=cuda)
+    draft = NGramProposer() if proposer == "ngram" \
+        else DraftModelProposer(params, cfg, width=2)
+    eng = DecodeEngine(runner=runner, store=store, num_slots=2,
+                       max_pages_per_slot=16, prefill_buckets=(16,),
+                       draft_runner=draft, draft_len=4, device=cuda,
+                       name="t_cuda_spec")
+    prompts = ([5, 17, 42, 9, 77, 3], [88, 12, 54, 61, 7, 30, 2, 1, 9])
+    want = [T.dense_generate(params, cfg, p, 10, device=cuda)
+            for p in prompts]
+    try:
+        paged_attention.launches = paged_attention.cuda_launches = 0
+        for _ in range(2):
+            recs = []
+            for p in prompts:
+                toks, ev = [], threading.Event()
+                eng.submit(p, 10, toks.append, lambda e, ev=ev: ev.set())
+                recs.append((toks, ev))
+            assert [ev.wait(60) and toks for toks, ev in recs] == want
+        sp = eng.stats()["speculative"]
+        assert sp["verify_calls"] > 0 and sp["spec_accepted"] > 0
+        assert paged_attention.launches >= sp["verify_calls"] * cfg.n_layers
+        assert paged_attention.cuda_launches == 2 * paged_attention.launches
+        assert eng.join_idle(10) and store.stats()["live_seqs"] == 0
     finally:
         eng.close()
         store.clear()

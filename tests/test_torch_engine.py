@@ -202,20 +202,23 @@ def test_engine_rejects_mismatched_store_and_device():
 
 
 def test_port_runs_without_jax_or_brpc_tpu():
-    """In a fresh interpreter: importing the port and serving one CPU
-    request leaves jax and the JAX package out of sys.modules."""
+    """In a fresh interpreter: importing the port (its speculative
+    module too) and serving one CPU request through a speculative engine
+    leaves jax and the JAX package out of sys.modules."""
     code = textwrap.dedent("""
         import sys, threading
         import brpc_tpu_torch
         from brpc_tpu_torch.models import (TransformerConfig,
             TransformerRunner, init_runner_params, make_store_for)
         from brpc_tpu_torch.serving import DecodeEngine
+        from brpc_tpu_torch.serving.speculative import NGramProposer
         cfg = TransformerConfig()
         store = make_store_for(cfg, page_tokens=4, device="cpu")
         runner = TransformerRunner(init_runner_params(cfg, device="cpu"),
                                    cfg, store=store, device="cpu")
         eng = DecodeEngine(runner=runner, store=store, num_slots=2,
-                           prefill_buckets=(8,), device="cpu")
+                           prefill_buckets=(8,), device="cpu",
+                           draft_runner=NGramProposer(), draft_len=2)
         toks, done = [], threading.Event()
         eng.submit([1, 2, 3], 2, toks.append, lambda e: done.set())
         assert done.wait(60) and len(toks) == 2, toks

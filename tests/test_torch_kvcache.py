@@ -104,6 +104,78 @@ def test_page_bytes_round_trip_between_packages(direction):
         ts.clear()
 
 
+# ---- draft leases: both packages, one sequence of calls ---------------------
+
+def test_draft_leases_match_reference_store():
+    """speculate -> rollback -> commit on a reference store and a port
+    store: the same tokens, page counts, released-page counts and
+    kv_filled at every step, the same committed page bytes, and a
+    rollback below kv_filled raises in both.  A draft is never cached:
+    only materialised full pages reach the radix tree."""
+    cfg_j = jax_runner.TransformerConfig(n_layers=1, n_kv_heads=2,
+                                         head_dim=8, n_heads=4)
+    rng = np.random.default_rng(41)
+    f, rows = _rows_for(rng, CFG, 16)
+    js = jax_runner.make_store_for(cfg_j, page_tokens=4, max_blocks=4,
+                                   name="t_torch_draft_jax")
+    ts = make_store_for(CFG, page_tokens=4, max_blocks=4, device=CPU,
+                        name="t_torch_draft_port")
+
+    def drive(store, seq, rows_of):
+        seen = []
+
+        def note(released=None):
+            seen.append((list(seq.tokens), len(seq.pages), released,
+                         seq.kv_filled))
+
+        store.write_kv(seq, 0, rows_of(0, 6))
+        store.speculate(seq, [2, 6, 5, 3, 5])        # 11 tokens, 3 pages
+        note()
+        note(store.rollback(seq, 8))                 # keep 2 drafts
+        store.write_kv_batch([(seq, 6, rows_of(6, 8))])
+        note()
+        store.speculate(seq, [8, 9, 7, 9, 3])        # crosses a page
+        note()
+        note(store.rollback(seq, 10))
+        store.write_kv_batch([(seq, 8, rows_of(8, 10))], final=False)
+        note()
+        store.commit_draft(seq, 10)
+        note()
+        with pytest.raises(ValueError):
+            store.rollback(seq, 9)                   # below kv_filled
+        with pytest.raises(ValueError):
+            store.rollback(seq, 11)                  # past the tokens
+        store.speculate(seq, [1, 1])                 # an unverified tail
+        note()
+        page_bytes = [np.asarray(store.pagepool.read_raw(p))
+                      for p in seq.pages]
+        st = store.stats()
+        counters = (st["speculated_tokens"], st["rolled_back_pages"])
+        store.retire(seq, cache=True)
+        return seen, page_bytes, counters, store.probe(seq.tokens + [0])
+
+    prompt = [3, 1, 4, 1, 5, 9]
+    try:
+        jres = drive(js, js.admit(prompt), lambda a, b: rows[a:b])
+        tres = drive(ts, ts.admit(prompt),
+                     lambda a, b: torch.from_numpy(f[a:b]))
+        assert tres[0] == jres[0]
+        assert tres[2] == jres[2] == (12, 2)
+        # cached: the two full materialised pages, never the draft's
+        assert tres[3] == jres[3] == 8
+        # the committed slots 0..9, byte for byte
+        kvb = CFG.kv_bytes_per_token
+        tslots, jslots = (np.concatenate(r[1]).reshape(-1, kvb)[:10]
+                          for r in (tres, jres))
+        np.testing.assert_array_equal(tslots, jslots)
+        np.testing.assert_array_equal(tslots, rows[:10])
+    finally:
+        js.clear()
+        js.close()
+        ts.clear()
+    assert ts.pagepool.blocks_leased() == 0
+
+
 # ---- the arena --------------------------------------------------------------
 
 def test_arena_is_one_persistent_view(store):

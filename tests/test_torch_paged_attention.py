@@ -262,7 +262,7 @@ def test_cpu_tensors_never_count_as_kernel_launches():
 
 # ---- the split-K merge of the CUDA path -------------------------------------
 
-SPLIT_CASES = sorted(set(CASES) - {"local_block"})
+SPLIT_CASES = sorted(CASES)
 
 
 def _torch_case(case):
@@ -275,8 +275,9 @@ def _torch_case(case):
 @pytest.mark.parametrize("case", SPLIT_CASES)
 def test_split_merge_matches_unsplit_plain(case, s_split):
     """Page entries cut into s_split ranges (9: more ranges than
-    entries), one (o, m, l) per range, merged, the self key folded: the
-    same output as the one-softmax plain version."""
+    entries), one (o, m, l) per range, merged with the self key or the
+    local block in the combine kernel's order: the same output as the
+    one-softmax plain version."""
     args, kw = _torch_case(case)
     out = paged_attention_split_plain(*args, **kw, s_split=s_split)
     assert not torch.isnan(out).any()
