@@ -1,0 +1,128 @@
+"""ctypes bindings to the port's native host core.
+
+A copy of the part of ``brpc_tpu/_core/lib.py`` the TRPC transport
+uses: the socket, framing, timer and IOBuf entry points of
+``libbrpc_core_torch.so`` and the ``_fastrpc`` extension linked against
+it, both built by :mod:`.build` at the first :func:`load`.  The port
+never opens the JAX package's ``libbrpc_core.so``; the two cores may
+live in one process, each with its own executor, dispatchers, timer
+thread and socket pool.
+"""
+from __future__ import annotations
+
+import ctypes
+import importlib.util
+import sys
+import threading
+
+from . import build as _build
+
+MSG_TRPC = 0
+MSG_HTTP = 1
+
+# Callback signatures (src/cc/capi.cc).  meta is c_void_p, not
+# c_char_p: it is binary and may hold NULs; read it with string_at.
+MESSAGE_CB = ctypes.CFUNCTYPE(None, ctypes.c_uint64, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_size_t,
+                              ctypes.c_void_p, ctypes.c_void_p)
+FAILED_CB = ctypes.CFUNCTYPE(None, ctypes.c_uint64, ctypes.c_int,
+                             ctypes.c_void_p)
+ACCEPTED_CB = ctypes.CFUNCTYPE(None, ctypes.c_uint64, ctypes.c_uint64,
+                               ctypes.c_void_p)
+TASK_CB = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
+RESPONSE_CB = ctypes.CFUNCTYPE(None, ctypes.c_uint64, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_void_p)
+
+_SIGS = {
+    "brpc_core_init": (None, [ctypes.c_int, ctypes.c_int]),
+    "brpc_snappy_max_compressed_length": (ctypes.c_size_t,
+                                          [ctypes.c_size_t]),
+    "brpc_snappy_compress": (ctypes.c_size_t,
+                             [ctypes.c_char_p, ctypes.c_size_t,
+                              ctypes.c_void_p]),
+    "brpc_snappy_uncompressed_length": (ctypes.c_int64,
+                                        [ctypes.c_char_p, ctypes.c_size_t]),
+    "brpc_snappy_decompress": (ctypes.c_int,
+                               [ctypes.c_char_p, ctypes.c_size_t,
+                                ctypes.c_void_p, ctypes.c_size_t]),
+    "brpc_iobuf_free": (None, [ctypes.c_void_p]),
+    "brpc_iobuf_size": (ctypes.c_size_t, [ctypes.c_void_p]),
+    "brpc_timer_add": (ctypes.c_uint64, [TASK_CB, ctypes.c_void_p,
+                                         ctypes.c_int64]),
+    "brpc_timer_cancel": (ctypes.c_int, [ctypes.c_uint64]),
+    "brpc_socket_write_frame": (ctypes.c_int, [ctypes.c_uint64,
+                                               ctypes.c_char_p,
+                                               ctypes.c_size_t,
+                                               ctypes.c_char_p,
+                                               ctypes.c_size_t,
+                                               ctypes.c_void_p]),
+    "brpc_socket_write_raw": (ctypes.c_int, [ctypes.c_uint64,
+                                             ctypes.c_char_p,
+                                             ctypes.c_size_t,
+                                             ctypes.c_void_p]),
+    "brpc_socket_set_failed": (ctypes.c_int, [ctypes.c_uint64, ctypes.c_int]),
+    "brpc_register_python_method": (None, [ctypes.c_char_p,
+                                           ctypes.c_char_p]),
+    "brpc_unregister_method": (ctypes.c_int, [ctypes.c_char_p,
+                                              ctypes.c_char_p]),
+    "brpc_listen_rpc": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int,
+                                       MESSAGE_CB, FAILED_CB, ACCEPTED_CB,
+                                       ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_uint64),
+                                       ctypes.POINTER(ctypes.c_int)]),
+    "brpc_connect_rpc": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int,
+                                        MESSAGE_CB, FAILED_CB, RESPONSE_CB,
+                                        ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_uint64)]),
+}
+
+_mu = threading.Lock()
+core = None        # the ctypes handle, once load() ran
+fastrpc = None     # the _fastrpc module, once load() ran
+
+
+def load():
+    """Build (where missing) and open the port's core and its
+    ``_fastrpc`` extension, then start the core's executor, dispatchers
+    and timer thread.  Idempotent; returns ``(core, fastrpc)``."""
+    global core, fastrpc
+    with _mu:
+        if core is None:
+            out = _build.build()
+            lib = ctypes.CDLL(str(out / _build.LIB_NAME))
+            for name, (res, args) in _SIGS.items():
+                fn = getattr(lib, name)
+                fn.restype = res
+                fn.argtypes = args
+            modname = __name__.rsplit(".", 1)[0] + "._fastrpc"
+            spec = importlib.util.spec_from_file_location(
+                modname, out / _build.EXT_NAME)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            sys.modules[modname] = mod
+            # 0, 0: the core sizes its executor and epoll pool by CPU count
+            lib.brpc_core_init(0, 0)
+            core, fastrpc = lib, mod
+        return core, fastrpc
+
+
+class IOBuf:
+    """An owned handle on a native chained buffer that the core handed
+    to a callback (the message body); freed at garbage collection."""
+
+    __slots__ = ("handle",)
+
+    def __init__(self, handle: int):
+        self.handle = handle
+
+    def __del__(self):
+        h = getattr(self, "handle", None)
+        if h:
+            core.brpc_iobuf_free(h)
+            self.handle = None
+
+    def __len__(self) -> int:
+        return core.brpc_iobuf_size(self.handle)
+
+    def to_bytes(self) -> bytes:
+        return fastrpc.iobuf_bytes(self.handle, 0, -1)

@@ -45,7 +45,27 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      sequence and the page pool at its baseline after each run; tokens
      per verify > 1, forks > 0 and flash launches > 0 for the draft
      model; printed beside the plain run's numbers;
-  6. prints ``{"kernels": [...]}``, the card line, and as the LAST line
+  6. RPC serving phase: the wide configuration behind
+     ``Serving.Generate`` on the port's own ``Server`` (127.0.0.1:0, the
+     native host core built from ``src/cc`` with ``g++`` into
+     ``build/torch_core/`` while ``nvcc`` builds the kernels): 8
+     concurrent 32-token streams through the port's ``Channel``, cold
+     (prefix_hit 0) and warm (prefix_hit > 0, identical tokens), warm
+     again from a client in its own process (the script waits for it to
+     exit), 10 pairs of warm passes on the same engine over RPC and
+     direct in alternating order (tokens/s and mean step of each), then
+     the same prompts through an ``NGramProposer`` speculative engine
+     behind its own ``Serving`` service with one request sending
+     ``"speculative": false``; every stream equal to the port's
+     ``dense_generate`` on the card, no live sequence and the pool at
+     its baseline after each engine shuts down (server, engine, store),
+     the paged kernel launched in the phase; prints tokens/s over RPC
+     beside the direct engine's (the pairs' medians and RPC/direct
+     quartiles), the client-timed time to first token (p50, max) and
+     inter-token gap (p50, p99), the native build's seconds and the
+     phase's paged-kernel launches, with the card's name and power
+     limit;
+  7. prints ``{"kernels": [...]}``, the card line, and as the LAST line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check, build or launch exits non-zero before the result.
@@ -75,6 +95,7 @@ RATE = {"bytes": "HBM 3.35 TB/s",
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 NEW_TOKENS = 32
 N_REQUESTS = 8
+RPC_PAIRS = 10       # warm passes over RPC and direct, in alternating order
 
 
 class SmokeError(RuntimeError):
@@ -151,22 +172,50 @@ def bound(nbytes, flops, dtype, ms):
             "share_of_bound": b_ms / ms}
 
 
-def launches_per_call(fn):
+def launches_per_call(fn, tries=3):
     """CUDA kernels (and copies) one call of ``fn`` puts on the device,
     counted by ``torch.profiler`` over one warm call; "not measured"
-    where the profiler saw no device activity."""
+    where the profiler saw no device activity.  The profiler has been
+    seen to miss the first kernel of its window on the card, so each
+    window opens with a marker (an int8 fill, which no wrapper here
+    issues), dropped by position: only an event in the window's first
+    place that carries the marker's name.  The count must be the same
+    in at least 2 of ``tries`` windows; otherwise the counts of every
+    window are returned, which no launch check accepts."""
+    import collections
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    marker = torch.zeros(1, dtype=torch.int8, device="cuda")
+
+    def device_names(body):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        return [e.name for e in evs]
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
-    return (len(names), names) if names else ("not measured", [])
+    # twice: the marker's name is learned even if the first is missed
+    marker_name = device_names(lambda: (marker.fill_(1),
+                                        marker.fill_(1)))[-1:]
+    windows = []
+    for _ in range(tries):
+        names = device_names(lambda: (marker.fill_(1), fn()))
+        if names[:1] == marker_name:
+            names = names[1:]
+        windows.append(names)
+    count, seen = collections.Counter(len(w) for w in windows
+                                      ).most_common(1)[0]
+    if seen < 2:
+        return [len(w) for w in windows], windows
+    names = next(w for w in windows if len(w) == count)
+    return (count, names) if names else ("not measured", [])
 
 
 # ---- kernel phase: paged attention -----------------------------------------
@@ -631,6 +680,261 @@ def serve_spec(dev, label, cfg, ctx, proposer, draft_len):
     }
 
 
+# ---- RPC serving phase ------------------------------------------------------
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs, dtype=np.float64), q)) \
+        if len(xs) else None
+
+
+def rpc_generate_all(port, prompts, label, extra=None):
+    """One ``Serving.Generate`` per prompt, all issued at once through
+    the port's Channel, each with its own token stream; the client
+    stamps each call's issue and each token's arrival.  Returns the
+    streams, their ``prefix_hit``s, the client-timed time to first token
+    and inter-token gaps (seconds), and the wall time."""
+    import brpc_tpu_torch.rpc as rpc
+
+    class Stream(rpc.StreamHandler):
+        def __init__(self):
+            self.toks, self.arrivals, self.terminal = [], [], None
+            self.closed = threading.Event()
+            self.answered = threading.Event()
+            self.resp = self.err = None
+
+        def on_received_messages(self, stream, messages):
+            now = time.perf_counter()
+            for m in messages:
+                d = json.loads(m)
+                if "token" in d:
+                    self.toks.append(d["token"])
+                    self.arrivals.append(now)
+                elif d.get("done"):
+                    self.terminal = d
+
+        def on_closed(self, stream):
+            self.closed.set()
+
+        def on_response(self, cntl):
+            self.resp, self.err = cntl.response, cntl.error_code
+            self.answered.set()
+
+    ch = rpc.Channel(f"127.0.0.1:{port}", timeout_ms=120_000)
+    recs = []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        rec, cntl = Stream(), rpc.Controller()
+        rpc.stream_create(cntl, rec)
+        body = {"prompt": p, "max_new_tokens": NEW_TOKENS,
+                **((extra or {}).get(i, {}))}
+        rec.t_issue = time.perf_counter()
+        ch.call("Serving", "Generate", body, cntl=cntl, done=rec.on_response,
+                serializer="json")
+        recs.append(rec)
+    for i, rec in enumerate(recs):
+        check(rec.answered.wait(300) and rec.closed.wait(300),
+              f"{label}: stream {i} hung")
+        check(rec.err == 0 and rec.resp.get("accepted") is True,
+              f"{label}: stream {i} answered {rec.err} {rec.resp}")
+        check(rec.terminal == {"done": True},
+              f"{label}: stream {i} ended with {rec.terminal}")
+    wall = time.perf_counter() - t0
+    ttft = [r.arrivals[0] - r.t_issue for r in recs if r.arrivals]
+    gaps = [b - a for r in recs for a, b in zip(r.arrivals, r.arrivals[1:])]
+    return ([r.toks for r in recs], [r.resp["prefix_hit"] for r in recs],
+            ttft, gaps, wall)
+
+
+_CLIENT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+out = cs.rpc_generate_all(int(sys.argv[2]), json.load(sys.stdin),
+                          "b rpc warm, client process")
+print(json.dumps(out))
+"""
+
+
+def rpc_generate_in_child(port, prompts):
+    """``rpc_generate_all`` from a client in its own process, so the
+    server process holds only the server's work (an in-process client's
+    stream handlers compete for the server's interpreter lock).  The
+    child is waited for and has exited when this returns."""
+    proc = subprocess.run([sys.executable, "-c", _CLIENT, ROOT, str(port)],
+                          input=json.dumps(prompts), capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"b rpc client process failed "
+                                f"({proc.returncode}): {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def serve_rpc(dev, cfg, ctx, card):
+    """The wide configuration behind ``Serving.Generate`` on the port's
+    Server (127.0.0.1:0): 8 concurrent 32-token streams through the
+    port's Channel cold, then warm, then warm from a client process,
+    then paired warm passes over RPC and direct on the same engine,
+    alternating which runs first; then the same prompts through an
+    NGramProposer speculative engine behind another Serving service, one
+    request sending ``"speculative": false``.  Every stream equals the
+    port's ``dense_generate`` on the card (the plain (b) run's oracle);
+    no live sequence and the pool at its baseline after each engine's
+    run."""
+    import torch
+    import brpc_tpu_torch._core.build as cbuild
+    import brpc_tpu_torch.models as models
+    import brpc_tpu_torch.ops.attention as attn
+    import brpc_tpu_torch.ops.paged_attention as pa
+    import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.serving as serving
+    import brpc_tpu_torch.serving.speculative as spec
+    geo, prompts = ctx["geometry"], ctx["prompts"]
+    toks = N_REQUESTS * NEW_TOKENS
+
+    def make(label, **kw):
+        store = models.make_store_for(cfg, page_tokens=geo["page_tokens"],
+                                      max_blocks=geo["max_blocks"],
+                                      device=dev, name=label)
+        runner = models.TransformerRunner(ctx["params"], cfg, store=store,
+                                          device=dev, name=label)
+        engine = serving.DecodeEngine(
+            runner=runner, store=store, num_slots=geo["num_slots"],
+            max_pages_per_slot=geo["max_pages"],
+            prefill_buckets=geo["buckets"], device=dev, name=label, **kw)
+        return store, store.pagepool.pool.stats()["classes"], engine
+
+    def shut(label, server, engine, store, free0):
+        # the order: server, engine, store
+        check(engine.join_idle(30), f"{label}: the engine did not go idle")
+        live = store.stats()["live_seqs"]
+        check(live == 0, f"{label}: {live} sequences still live")
+        server.stop()
+        server.join()
+        engine.close()
+        store.clear()
+        check(store.pagepool.blocks_leased() == 0 and
+              store.pagepool.pool.stats()["classes"] == free0,
+              f"{label}: the page pool did not return to its baseline")
+
+    class Recording:
+        """The engine as the service sees it, recording each submit's
+        keywords (the forwarded opt-out)."""
+
+        def __init__(self, engine):
+            self.engine, self.store, self.kws = engine, engine.store, []
+
+        def submit(self, *a, **kw):
+            self.kws.append(kw)
+            return self.engine.submit(*a, **kw)
+
+    torch.cuda.synchronize()
+    pa.paged_attention.launches = 0
+    pa.paged_attention.cuda_launches = 0
+    attn.flash_attention.launches = 0
+    store, free0, engine = make("b rpc")
+    server = rpc.Server()
+    serving.register_serving(server, engine=engine)
+    server.start("127.0.0.1", 0)
+    try:
+        cold, hit_cold, ttft_c, gaps_c, t_cold = rpc_generate_all(
+            server.port, prompts, "b rpc cold")
+        warm, hit_warm, ttft_w, gaps_w, t_warm = rpc_generate_all(
+            server.port, prompts, "b rpc warm")
+        child, hit_child, ttft_p, gaps_p, t_child = rpc_generate_in_child(
+            server.port, prompts)
+        # paired warm passes on this engine, RPC and direct, alternating
+        # which runs first: tokens/s and the mean step of each pass
+        paired = {"rpc": [], "direct": []}
+        for i in range(RPC_PAIRS):
+            for kind in ("rpc", "direct") if i % 2 else ("direct", "rpc"):
+                steps0, sec0 = engine.steps, engine.step_seconds
+                t0 = time.perf_counter()
+                if kind == "rpc":
+                    streams = rpc_generate_all(server.port, prompts,
+                                               "b rpc pair")[0]
+                else:
+                    streams = generate_all(engine, prompts, "b rpc direct")
+                t = time.perf_counter() - t0
+                paired[kind].append(
+                    (streams, toks / t, 1e3 * (engine.step_seconds - sec0)
+                     / max(1, engine.steps - steps0)))
+    finally:
+        shut("b rpc", server, engine, store, free0)
+    # the speculative engine behind its own Serving service
+    store, free0, engine = make("b rpc spec",
+                                draft_runner=spec.NGramProposer(),
+                                draft_len=4)
+    rec = Recording(engine)
+    server = rpc.Server()
+    serving.register_serving(server, engine=rec)
+    server.start("127.0.0.1", 0)
+    try:
+        spec_out, _, ttft_s, gaps_s, t_spec = rpc_generate_all(
+            server.port, prompts, "b rpc spec", extra={3: {
+                "speculative": False}})
+        sp = engine.stats()["speculative"]
+    finally:
+        shut("b rpc spec", server, engine, store, free0)
+    paged = pa.paged_attention.launches
+    paged_cuda = pa.paged_attention.cuda_launches
+    flash = attn.flash_attention.launches
+    oracle = ctx["oracle"]
+    runs = [("cold", cold), ("warm", warm), ("client process", child),
+            ("spec", spec_out)]
+    runs += [(f"pair {kind}", p[0]) for kind in paired for p in paired[kind]]
+    for name, streams in runs:
+        for i, (c, o) in enumerate(zip(streams, oracle)):
+            check(c == o, f"b rpc {name}: stream {i} streamed {c}, dense "
+                          f"oracle {o}")
+    check(hit_cold == [0] * N_REQUESTS, f"b rpc: cold prefix_hit {hit_cold}")
+    check(all(h > 0 for h in hit_warm + hit_child),
+          f"b rpc: warm prefix_hit {hit_warm}, {hit_child}")
+    check(rec.kws.count({"speculative": False}) == 1 and
+          rec.kws.count({}) == N_REQUESTS - 1,
+          f"b rpc spec: submits saw {rec.kws}")
+    check(sp["spec_accepted"] > 0, "b rpc spec: no draft was accepted")
+    check(paged > 0 and paged_cuda == 2 * paged,
+          f"b rpc: launches paged {paged} ({paged_cuda} CUDA)")
+    ms = 1e3
+    ratios = [r[1] / d[1] for r, d in zip(paired["rpc"], paired["direct"])]
+    pairs = {kind: {"tokens_per_s": [p[1] for p in paired[kind]],
+                    "step_ms": [p[2] for p in paired[kind]]}
+             for kind in paired}
+    return {
+        "config": "b rpc", "card": card, "requests": N_REQUESTS,
+        "new_tokens": NEW_TOKENS, "prompt_len": len(prompts[0]),
+        "native_build_s": cbuild.build_seconds,
+        "cold_s": t_cold, "warm_s": t_warm,
+        "client_process_warm_s": t_child, "spec_s": t_spec,
+        "cold_tokens_per_s": toks / t_cold, "warm_tokens_per_s": toks / t_warm,
+        "client_process_warm_tokens_per_s": toks / t_child,
+        "spec_tokens_per_s": toks / t_spec,
+        "pairs": pairs,
+        "pair_rpc_over_direct": ratios,
+        "pair_rpc_over_direct_quartiles": [pct(ratios, q)
+                                           for q in (25, 50, 75)],
+        "pair_rpc_wins": sum(r > 1 for r in ratios),
+        "pair_tokens_per_s_median": {
+            k: pct(v["tokens_per_s"], 50) for k, v in pairs.items()},
+        "pair_step_ms_median": {
+            k: pct(v["step_ms"], 50) for k, v in pairs.items()},
+        "ttft_ms": {k: {"p50": ms * pct(v, 50), "max": ms * max(v)}
+                    for k, v in (("cold", ttft_c), ("warm", ttft_w),
+                                 ("warm_client_process", ttft_p),
+                                 ("spec", ttft_s))},
+        "gap_ms": {k: {"p50": ms * pct(v, 50), "p99": ms * pct(v, 99)}
+                   for k, v in (("cold", gaps_c), ("warm", gaps_w),
+                                ("warm_client_process", gaps_p),
+                                ("spec", gaps_s))},
+        "warm_prefix_hit_tokens": hit_warm,
+        "spec": {"accept_rate": sp["accept_rate"],
+                 "tokens_per_verify": sp["tokens_per_verify"],
+                 "verify_calls": sp["verify_calls"]},
+        "launches": {"paged_attention": paged,
+                     "flash_attention": flash},
+        "paged_cuda_launches": paged_cuda,
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -650,13 +954,31 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
 
+    import brpc_tpu_torch._core.build as cbuild
     import brpc_tpu_torch.models as models
     import brpc_tpu_torch.ops._build as kbuild
     import brpc_tpu_torch.ops.attention as attn
     import brpc_tpu_torch.ops.paged_attention as pa
+    # the native host core (g++, one process per source) builds while
+    # nvcc builds the kernels (one process per source)
+    native = {}
+
+    def build_native():
+        try:
+            native["dir"] = cbuild.build()
+        except Exception as e:           # re-raised below, on this thread
+            native["error"] = e
+
     t0 = time.perf_counter()
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     kbuild.build()
     build_s = time.perf_counter() - t0
+    native_thread.join()
+    if "error" in native:
+        raise SmokeError(f"native core build failed: {native['error']}")
+    print(f"native core: {native['dir']} built in "
+          f"{cbuild.build_seconds} s", flush=True)
     ptxas = {}
     for name in kbuild.SOURCES:
         log = kbuild.log_path(name)
@@ -771,10 +1093,30 @@ def main() -> int:
               f"{served_b['warm_profile']['device_busy_share']})",
               flush=True)
 
+    # -- RPC serving phase: (b) behind Serving.Generate on the port's server
+    served_rpc = serve_rpc(dev, cfg_b, ctx_b, card)
+    r = served_rpc
+    print(f"serve b rpc [{card}]: cold {r['cold_tokens_per_s']:.1f} tok/s, "
+          f"warm {r['warm_tokens_per_s']:.1f} tok/s (client in its own "
+          f"process {r['client_process_warm_tokens_per_s']:.1f}); "
+          f"{RPC_PAIRS} alternating warm pairs on the same engine: median "
+          f"tok/s {json.dumps(r['pair_tokens_per_s_median'])}, median step "
+          f"ms {json.dumps(r['pair_step_ms_median'])}, RPC/direct quartiles "
+          f"{json.dumps(r['pair_rpc_over_direct_quartiles'])}, RPC ahead in "
+          f"{r['pair_rpc_wins']} (plain b phase: cold "
+          f"{served_b['cold_tokens_per_s']:.1f}, warm "
+          f"{served_b['warm_tokens_per_s']:.1f}); spec ngram "
+          f"{r['spec_tokens_per_s']:.1f} tok/s; time to first token ms "
+          f"{json.dumps(r['ttft_ms'])}; inter-token gap ms "
+          f"{json.dumps(r['gap_ms'])}; native core build "
+          f"{r['native_build_s']} s; launches {r['launches']} "
+          f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
+
     def entry(name, source, replaces, rows, main_row):
         m = rows[main_row]
         err = max(r["max_abs_err"] for r in rows)
-        launches = sum(r["launches"][name] for r in served + speculative)
+        launches = sum(r["launches"][name]
+                       for r in served + speculative + [served_rpc])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "max_abs_diff": err,
@@ -798,6 +1140,8 @@ def main() -> int:
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "sass": sass, "kernels": kernels,
               "serving": served, "speculative": speculative,
+              "rpc_serving": served_rpc,
+              "native_build_s": cbuild.build_seconds,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,
                   "flash_attention": attn.flash_attention.launches}}

@@ -12,6 +12,7 @@ build from ``brpc_tpu_torch/csrc`` at their first launch.  Tolerances:
 f32 atol 1e-4 (the kernels sum in another order than the plain
 versions), bf16 2e-2.  TF32 is off for every matmul here.
 """
+import json
 import threading
 
 import numpy as np
@@ -30,7 +31,8 @@ from brpc_tpu_torch.ops.paged_attention import (MAX_LOCAL_WIDTH,
                                                 paged_attention_plain,
                                                 paged_attention_split_plain,
                                                 split_plan)
-from brpc_tpu_torch.serving import DecodeEngine
+import brpc_tpu_torch.rpc as rpc
+from brpc_tpu_torch.serving import DecodeEngine, register_serving
 from brpc_tpu_torch.serving.speculative import (DraftModelProposer,
                                                 NGramProposer)
 
@@ -408,3 +410,65 @@ def test_speculative_engine_on_card_streams_the_dense_oracle(cuda,
     finally:
         eng.close()
         store.clear()
+
+
+def test_serving_generate_over_loopback_on_card(cuda):
+    """Two concurrent ``Serving.Generate`` streams through the port's own
+    server and channel on loopback, the engine on the card: each stream
+    equals the dense oracle, cold and warm (prefix hit on the warm
+    pass), the paged kernel ran on the way, and after server, engine
+    and store shut down in that order the pool is at its baseline."""
+    cfg = T.TransformerConfig()
+    params = T.init_runner_params(cfg, 3, device=cuda)
+    store = T.make_store_for(cfg, page_tokens=4, max_blocks=16, device=cuda,
+                             name="t_cuda_rpc")
+    free0 = store.pagepool.pool.stats()["classes"]
+    runner = T.TransformerRunner(params, cfg, store=store, device=cuda)
+    eng = DecodeEngine(runner=runner, store=store, num_slots=2,
+                       max_pages_per_slot=16, prefill_buckets=(16,),
+                       device=cuda, name="t_cuda_rpc")
+    server = rpc.Server()
+    register_serving(server, engine=eng)
+    server.start("127.0.0.1", 0)
+    prompts = ([5, 17, 42, 9, 77, 3], [88, 12, 54, 61, 7, 30, 2, 1, 9])
+    want = [T.dense_generate(params, cfg, p, 8, device=cuda)
+            for p in prompts]
+
+    class Collect(rpc.StreamHandler):
+        def __init__(self):
+            self.msgs, self.done = [], threading.Event()
+
+        def on_received_messages(self, stream, messages):
+            self.msgs.extend(json.loads(m) for m in messages)
+
+        def on_closed(self, stream):
+            self.done.set()
+
+    try:
+        ch = rpc.Channel(f"127.0.0.1:{server.port}", timeout_ms=60_000)
+        paged_attention.launches = 0
+        for warm in (False, True):
+            cols, hits = [], []
+            for p in prompts:
+                col, cntl = Collect(), rpc.Controller()
+                rpc.stream_create(cntl, col)
+                resp = ch.call_sync("Serving", "Generate",
+                                    {"prompt": p, "max_new_tokens": 8},
+                                    serializer="json", cntl=cntl)
+                cols.append(col)
+                hits.append(resp["prefix_hit"])
+            for col, w in zip(cols, want):
+                assert col.done.wait(60)
+                assert col.msgs[-1] == {"done": True}
+                assert [m["token"] for m in col.msgs[:-1]] == w
+            assert all(h > 0 for h in hits) if warm \
+                else hits == [0, 0]
+        assert paged_attention.launches > 0
+        assert eng.join_idle(10) and store.stats()["live_seqs"] == 0
+    finally:
+        server.stop()
+        server.join()
+        eng.close()
+        store.clear()
+    assert store.pagepool.blocks_leased() == 0 and \
+        store.pagepool.pool.stats()["classes"] == free0

@@ -17,6 +17,7 @@ import threading
 import pytest
 import torch
 
+import brpc_tpu_torch._core.build as core_build
 from brpc_tpu_torch import errors
 from brpc_tpu_torch.models import runner as T
 from brpc_tpu_torch.serving import DecodeEngine
@@ -203,14 +204,19 @@ def test_engine_rejects_mismatched_store_and_device():
 
 def test_port_runs_without_jax_or_brpc_tpu():
     """In a fresh interpreter: importing the port (its speculative
-    module too) and serving one CPU request through a speculative engine
-    leaves jax and the JAX package out of sys.modules."""
+    module, its RPC front and its Serving service too), serving one CPU
+    request through a speculative engine and one ``Serving.Generate``
+    over loopback through the port's own server and channel leaves jax
+    and the JAX package out of sys.modules; the only native core mapped
+    is the port's own build."""
     code = textwrap.dedent("""
-        import sys, threading
+        import json, sys, threading
         import brpc_tpu_torch
+        import brpc_tpu_torch.rpc as rpc
         from brpc_tpu_torch.models import (TransformerConfig,
             TransformerRunner, init_runner_params, make_store_for)
         from brpc_tpu_torch.serving import DecodeEngine
+        from brpc_tpu_torch.serving.service import register_serving
         from brpc_tpu_torch.serving.speculative import NGramProposer
         cfg = TransformerConfig()
         store = make_store_for(cfg, page_tokens=4, device="cpu")
@@ -222,12 +228,41 @@ def test_port_runs_without_jax_or_brpc_tpu():
         toks, done = [], threading.Event()
         eng.submit([1, 2, 3], 2, toks.append, lambda e: done.set())
         assert done.wait(60) and len(toks) == 2, toks
-        eng.close()
+        server = rpc.Server()
+        register_serving(server, engine=eng)
+        server.start("127.0.0.1", 0)
+        msgs, closed = [], threading.Event()
+
+        class Collect(rpc.StreamHandler):
+            def on_received_messages(self, stream, batch):
+                msgs.extend(json.loads(m) for m in batch)
+
+            def on_closed(self, stream):
+                closed.set()
+
+        cntl = rpc.Controller()
+        rpc.stream_create(cntl, Collect())
+        resp = rpc.Channel(f"127.0.0.1:{server.port}",
+                           timeout_ms=30000).call_sync(
+            "Serving", "Generate", {"prompt": [1, 2, 3],
+                                    "max_new_tokens": 2},
+            serializer="json", cntl=cntl)
+        assert resp["accepted"] and closed.wait(60), (resp, msgs)
+        assert [m["token"] for m in msgs if "token" in m] == toks, msgs
+        assert msgs[-1] == {"done": True}, msgs
+        server.stop(); server.join(); eng.close()
+        cores = sorted({ln.split()[-1].rsplit("/", 1)[-1]
+                        for ln in open("/proc/self/maps")
+                        if "libbrpc_core" in ln})
+        print("CORES", cores)
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "brpc_tpu"))
         print("LEAKED", bad)
-        sys.exit(1 if bad else 0)
+        sys.exit(1 if bad or cores != ["libbrpc_core_torch.so"] else 0)
     """)
+    # the port's native core is compiled here (g++ only; nothing is
+    # loaded), so the child's time goes to the imports and the requests
+    core_build.build()
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
