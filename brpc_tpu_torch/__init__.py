@@ -10,9 +10,15 @@ The port of ``brpc_tpu``'s device half, sub-package for sub-package:
   kvcache/                 refcounted pages, radix prefix tree, KV store
   models/runner.py         the transformer runner and its dense oracle
   serving/engine.py        the continuous-batching decode engine
-  serving/service.py       ``Serving.Generate`` over the RPC front
+  serving/batcher.py       the dynamic batcher (``Serving.Score``)
+  serving/supervisor.py    the engine supervisor: crash hand-off,
+                           heartbeat watchdog, overload ladder
+  serving/service.py       ``Serving.Generate``/``Score``/``ScoreT``
+                           over the RPC front
   rpc/                     the TRPC server, channel and streams, on the
-                           same wire as ``brpc_tpu.rpc``
+                           same wire as ``brpc_tpu.rpc`` (json, raw and
+                           tensorframe bodies)
+  bvar/, fault.py, policy/ metrics, fault sites, concurrency limiters
   _core/                   the native host core (``src/cc``), built with
                            ``g++`` into ``build/torch_core/``
 

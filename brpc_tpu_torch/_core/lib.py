@@ -1,10 +1,11 @@
 """ctypes bindings to the port's native host core.
 
-A copy of the part of ``brpc_tpu/_core/lib.py`` the TRPC transport
-uses: the socket, framing, timer and IOBuf entry points of
-``libbrpc_core_torch.so`` and the ``_fastrpc`` extension linked against
-it, both built by :mod:`.build` at the first :func:`load`.  The port
-never opens the JAX package's ``libbrpc_core.so``; the two cores may
+A copy of the part of ``brpc_tpu/_core/lib.py`` the port uses: the
+socket, framing, timer and IOBuf entry points of the TRPC transport,
+the latency recorder of ``bvar`` and the batcher's ``brpc_batch_pad``
+in ``libbrpc_core_torch.so``, and the ``_fastrpc`` extension linked
+against it, both built by :mod:`.build` at the first :func:`load`.
+The port never opens the JAX package's ``libbrpc_core.so``; the two cores may
 live in one process, each with its own executor, dispatchers, timer
 thread and socket pool.
 """
@@ -74,6 +75,21 @@ _SIGS = {
                                         MESSAGE_CB, FAILED_CB, RESPONSE_CB,
                                         ctypes.c_void_p,
                                         ctypes.POINTER(ctypes.c_uint64)]),
+    # bvar's native latency recorder (bvar/recorder.py)
+    "brpc_latency_new": (ctypes.c_void_p, []),
+    "brpc_latency_free": (None, [ctypes.c_void_p]),
+    "brpc_latency_record": (None, [ctypes.c_void_p, ctypes.c_int64]),
+    "brpc_latency_stats": (None, [ctypes.c_void_p,
+                                  ctypes.POINTER(ctypes.c_int64),
+                                  ctypes.POINTER(ctypes.c_int64),
+                                  ctypes.POINTER(ctypes.c_int64)]),
+    "brpc_latency_percentile": (ctypes.c_double, [ctypes.c_void_p,
+                                                  ctypes.c_double]),
+    # the batcher's formation pad (src/cc/serving_hotpath.cc)
+    "brpc_batch_pad": (None, [ctypes.POINTER(ctypes.c_void_p),
+                              ctypes.POINTER(ctypes.c_int64),
+                              ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_int64, ctypes.c_int64]),
 }
 
 _mu = threading.Lock()

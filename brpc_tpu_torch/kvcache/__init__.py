@@ -2,4 +2,4 @@
 prefix tree, and the engine-facing store."""
 from .pages import KVPage, PagePool  # noqa: F401
 from .radix import RadixTree  # noqa: F401
-from .store import KVCacheStore, KVSeq  # noqa: F401
+from .store import KVCacheStore, KVSeq, RecoveryPin  # noqa: F401

@@ -18,7 +18,10 @@ through :meth:`KVCacheStore.write_kv`.  The lifecycle the engine drives:
                     tail returns its pages, an accepted prefix commits
                     (vector KV: by ``write_kv_batch`` of its real rows);
   retire(seq)    -> full, materialised page chunks are offered to the
-                    radix tree, every seq ref drops.
+                    radix tree, every seq ref drops;
+  detach(seq)    -> crash recovery: retire a live sequence committing its
+                    full pages to the tree, and pin them (a RecoveryPin)
+                    until the request is re-admitted.
 
 K/V rows arrive as tensors on the store's device and stay there: the
 reference ships host numpy rows, this store writes device rows in place.
@@ -37,6 +40,29 @@ from .pages import KVPage, PagePool
 from .radix import RadixTree
 
 _seq_ids = itertools.count(1)
+
+
+class RecoveryPin:
+    """The refs :meth:`KVCacheStore.detach` takes on a crashed
+    sequence's committed prefix pages.  While held, pressure eviction
+    cannot free that prefix; ``release()`` (idempotent) drops them once
+    the request has been re-admitted, whose admission takes its own
+    refs on the pages it matches."""
+
+    __slots__ = ("_store", "_pages", "tokens")
+
+    def __init__(self, store, pages, tokens: int):
+        self._store = store
+        self._pages = list(pages)
+        self.tokens = tokens          # committed prefix length pinned
+
+    def release(self) -> None:
+        pages, self._pages = self._pages, []
+        if pages:
+            self._store.release(pages)
+
+    def __len__(self) -> int:
+        return len(self._pages)
 
 
 class KVSeq:
@@ -88,6 +114,7 @@ class KVCacheStore:
         self.forks = 0
         self.speculated = 0         # draft tokens appended
         self.rolled_back = 0        # draft pages released
+        self.detached = 0           # sequences handed over by detach()
 
     # ---- lifecycle ----
 
@@ -270,8 +297,7 @@ class KVCacheStore:
                 return
             seq.retired = True
             if cache:
-                nfull = min(len(seq.tokens), seq.kv_filled) \
-                    // self.page_tokens
+                nfull = self._cacheable_full(seq)
                 if nfull:
                     self.radix.insert(seq.tokens[:nfull * self.page_tokens],
                                       seq.pages[:nfull])
@@ -281,7 +307,45 @@ class KVCacheStore:
             self.retired += 1
             self._live -= 1
 
+    def detach(self, seq: KVSeq) -> RecoveryPin:
+        """Crash recovery's hand-over: atomically commit a LIVE
+        sequence's full, materialised pages to the radix tree, take a
+        recovery ref on the pages the tree now holds, and retire the
+        sequence.  The next ``admit`` of ``seq.tokens + ...`` hits the
+        committed prefix (only the uncommitted tail re-decodes), and the
+        pin keeps eviction off it until then.  One critical section:
+        eviction cannot strike between the commit and the pin.  The pin
+        counts pages, never the blocks that hold them."""
+        with self._mu:
+            if seq.retired:
+                return RecoveryPin(self, [], 0)
+            nfull = self._cacheable_full(seq)
+            pinned: list = []
+            if nfull:
+                toks = seq.tokens[:nfull * self.page_tokens]
+                self.radix.insert(toks, seq.pages[:nfull])
+                # pin the pages the TREE holds (an already-cached chunk
+                # keeps the tree's page, not this seq's copy): those are
+                # the ones a re-admission matches
+                pinned = self.radix.match(toks, max_chunks=nfull)
+                for p in pinned:
+                    self.pagepool.ref(p)
+            seq.retired = True
+            for p in seq.pages:
+                self.pagepool.unref(p)
+            seq.pages = []
+            self.detached += 1
+            self.retired += 1
+            self._live -= 1
+            return RecoveryPin(self, pinned, len(pinned) * self.page_tokens)
+
     # ---- internals (caller holds _mu) ----
+
+    def _cacheable_full(self, seq: KVSeq) -> int:
+        """Full pages eligible for the radix tree: bounded by the
+        materialised prefix (the last generated token's slot holds no
+        K/V until it is stepped)."""
+        return min(len(seq.tokens), seq.kv_filled) // self.page_tokens
 
     def _cow(self, seq: KVSeq, pi: int) -> KVPage:
         """Replace seq's shared page ``pi`` by a private copy."""
@@ -387,6 +451,7 @@ class KVCacheStore:
                 "prompt_tokens": self.prompt_tokens,
                 "admitted": self.admitted,
                 "retired": self.retired,
+                "detached": self.detached,
                 "forks": self.forks,
                 "speculated_tokens": self.speculated,
                 "rolled_back_pages": self.rolled_back,

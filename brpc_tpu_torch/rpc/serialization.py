@@ -3,13 +3,15 @@
 The part of ``brpc_tpu/rpc/serialization.py`` the TRPC front needs,
 encoding the same bytes:
 
-  raw     opaque bytes
-  json    dict/list/str/num as compact JSON
+  raw          opaque bytes
+  json         dict/list/str/num as compact JSON
+  tensorframe  inline scalars and strings plus tensors, decoded as numpy
+               views (``rpc/tensorframe.py``)
 
 Compression: gzip, zlib, snappy (the native block-format codec of the
 port's core) and zstd where the ``zstandard`` package is installed.
-The tensor, protobuf, pickle, compact and tensorframe serializers come
-with the slices that use them.
+The tensor, protobuf, pickle and compact serializers come with the
+slices that use them.
 """
 from __future__ import annotations
 
@@ -69,8 +71,25 @@ class JsonSerializer(Serializer):
         return json.loads(body) if body else None
 
 
+class TensorFrameSerializer(Serializer):
+    """Mixed-payload binary frames (see ``rpc/tensorframe.py`` for the
+    layout and the bounded decode, whose ``ValueError`` the server maps
+    to EREQUEST)."""
+
+    name = "tensorframe"
+
+    def encode(self, obj):
+        from .tensorframe import encode_frame
+        return encode_frame(obj), b""
+
+    def decode(self, body, tensor_header):
+        from .tensorframe import decode_frame
+        return decode_frame(body)
+
+
 _SERIALIZERS: dict[str, Serializer] = {
-    s.name: s for s in (RawSerializer(), JsonSerializer())}
+    s.name: s for s in (RawSerializer(), JsonSerializer(),
+                        TensorFrameSerializer())}
 
 
 def get_serializer(name):

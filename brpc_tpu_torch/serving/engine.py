@@ -34,10 +34,22 @@ token streams to its caller per step.
     bonus token stream out.  The streams equal the plain step's.  A
     request may opt out (``submit(..., speculative=False)``); when no
     slot has a proposal the iteration is a plain step.
+  * supervision (``on_crash=`` / ``set_crash_handler``, driven by
+    ``serving/supervisor.py``): a step or verify that raises under a
+    crash handler stops the loop with every slot INTACT -- requests
+    unfinished, KV leases held -- and tells the handler; ``takeover()``
+    then hands the slots and waiters to the supervisor.  The loop
+    publishes a heartbeat every iteration, so a watchdog can tell a busy
+    loop from a wedged or dead one.  After each step the loop commits
+    only slots it still owns, under a commit lock that ``takeover()``
+    takes too, so a stolen slot never receives another token from the
+    old loop.  ``degraded_clamp`` (the overload ladder's) caps new
+    submissions' ``max_new_tokens``.  Fault sites: ``serving.step``,
+    ``serving.spec_verify``, ``serving.heartbeat`` (``fault.py``).
 
 Not in this port yet (see ROADMAP.md): the native token ring, rpcz
-spans and host-CPU accounting, supervisor crash hand-off, fault sites
-and the legacy step-function adapter.
+spans and host-CPU accounting, the bvar counters and the legacy
+step-function adapter.
 """
 from __future__ import annotations
 
@@ -50,7 +62,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from .. import errors
+from .. import errors, fault
 from ..device import resolve_device
 from ..ops.paged_attention import MAX_LOCAL_WIDTH
 from .speculative import as_proposer
@@ -177,6 +189,7 @@ class DecodeEngine:
                  prefill_buckets: Sequence[int] = (16, 64, 256, 1024, 4096),
                  eos_token: Optional[int] = None, emit_buffer: int = 256,
                  draft_runner=None, draft_len: int = 4,
+                 on_crash: Optional[Callable] = None,
                  device=None, name: str = "engine"):
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
@@ -226,6 +239,20 @@ class DecodeEngine:
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_tokens = 0
+        # supervision: a crash handler is told (slots left intact)
+        # instead of failing the requests; the heartbeat tells a busy
+        # loop from a wedged or dead one; degraded_clamp caps NEW
+        # submissions' budgets
+        self._on_crash = on_crash
+        self._crashed: Optional[BaseException] = None
+        self._taken_over = False
+        self.degraded_clamp: Optional[int] = None
+        self._beat_steps = 0
+        self._beat_t = time.monotonic()
+        # held by the loop while it commits a step's results to its
+        # slots, and by takeover(): a takeover lands between commits,
+        # never inside one
+        self._commit_mu = threading.Lock()
         self._cv = threading.Condition(threading.Lock())
         self._slots: list[Optional[_Slot]] = [None] * self.num_slots
         self._waiters: deque[_Request] = deque()
@@ -236,18 +263,27 @@ class DecodeEngine:
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name=f"serving-engine-{name}")
         self._thread.start()
+        from . import _register_engine
+        _register_engine(self)
 
     # ---- submission ----
 
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
                emit: Callable[[int], None],
                on_done: Optional[Callable] = None, *,
-               speculative: bool = True) -> int:
+               clamp: bool = True, speculative: bool = True) -> int:
         """Queue a request for the next step boundary with a free slot.
         Returns the request id; ``on_done(err)`` fires exactly once.
-        ``speculative=False`` keeps a speculative engine from proposing
-        for this request (it rides the verify batch as a plain row)."""
-        req = _Request(prompt, min(int(max_new_tokens), MAX_NEW_TOKENS_CAP),
+        ``clamp=False`` exempts it from ``degraded_clamp`` (a
+        supervisor's re-admission keeps the budget it was admitted
+        with).  ``speculative=False`` keeps a speculative engine from
+        proposing for this request (it rides the verify batch as a plain
+        row)."""
+        limit = MAX_NEW_TOKENS_CAP
+        brownout = self.degraded_clamp
+        if clamp and brownout is not None:
+            limit = min(limit, int(brownout))
+        req = _Request(prompt, min(int(max_new_tokens), limit),
                        emit, on_done, self.emit_buffer, speculative)
         if req.max_new_tokens <= 0:
             req.finish(errors.RpcError(errors.EREQUEST,
@@ -300,9 +336,15 @@ class DecodeEngine:
                     if self._slots[i] is None:
                         self._slots[i] = slot
                         return (i, slot)
-        # closed while admitting: close() already drained the waiters
-        self.store.retire(seq, cache=False)
-        req.finish(errors.RpcError(errors.ELOGOFF, "engine closed"))
+        # closed while admitting: close() already drained the waiters.
+        # Under a takeover the prompt's pages are worth caching: the
+        # supervisor resubmits this prompt, and its admission then hits
+        taken = self._taken_over
+        self.store.retire(seq, cache=taken)
+        req.finish(errors.RpcError(
+            errors.ELOGOFF,
+            "engine restarting (supervisor takeover)" if taken
+            else "engine closed"))
         return None
 
     # ---- emitter threads (one per admitted request) ----
@@ -379,6 +421,7 @@ class DecodeEngine:
 
     def _loop(self) -> None:
         while True:
+            self._touch_beat()
             with self._cv:
                 if not self._running:
                     return
@@ -392,6 +435,7 @@ class DecodeEngine:
                 i, s = installed
                 self._prefill(i, s)
                 self._start_emitter(req)
+                self._touch_beat()      # a long prefill is progress
             with self._cv:
                 if not self._running:
                     return
@@ -399,15 +443,64 @@ class DecodeEngine:
                           if s is not None]
                 if not active:
                     if not self._waiters:
+                        # bounded, so an idle loop keeps beating
                         self._cv.wait(0.25)
                     continue
-            if self._draft is not None:
-                self._spec_step(active)
-            else:
-                self._step(active)
+            step = self._spec_step if self._draft is not None \
+                else self._step
+            if not step(active):
+                return
 
-    def _step(self, active) -> None:
-        """One decode iteration across every active slot."""
+    # ---- supervision ----
+
+    def _touch_beat(self) -> None:
+        """Publish step-loop progress for a watchdog.  The
+        ``serving.heartbeat`` fault site SUPPRESSES the beat while the
+        loop keeps running: a wedge, as the watchdog sees it."""
+        if fault.ENABLED and fault.hit(
+                fault.HEARTBEAT, name=self.name) is not None:
+            return
+        self._beat_steps += 1
+        self._beat_t = time.monotonic()
+
+    def heartbeat(self) -> tuple:
+        """(progress counter, monotonic time of the last beat)."""
+        return self._beat_steps, self._beat_t
+
+    def has_work(self) -> bool:
+        with self._cv:
+            return (self._admitting > 0 or bool(self._waiters)
+                    or any(s is not None for s in self._slots))
+
+    def set_crash_handler(self, fn: Optional[Callable]) -> None:
+        self._on_crash = fn
+
+    @property
+    def crashed(self) -> Optional[BaseException]:
+        return self._crashed
+
+    def _crash(self, exc: BaseException) -> None:
+        """A supervised step failure: stop the loop with every slot
+        intact and tell the crash handler (on this thread: it must only
+        signal)."""
+        with self._cv:
+            self._crashed = exc
+            self._running = False
+            self._cv.notify_all()
+        try:
+            self._on_crash(self, exc)
+        except Exception:
+            _log.exception("engine crash handler raised")
+
+    def _fail_active(self, active, err) -> None:
+        """Unsupervised step failure: retire every active request with a
+        definite error, so a broken step never wedges its callers."""
+        for i, _ in active:
+            self._retire(i, err)
+
+    def _step(self, active) -> bool:
+        """One decode iteration across every active slot.  Returns False
+        when the loop must stop (a supervised crash)."""
         tok = np.zeros((self.num_slots,), np.int32)
         pos = np.zeros((self.num_slots,), np.int32)
         for i, s in active:
@@ -416,20 +509,32 @@ class DecodeEngine:
         pages = self._gather_page_tables(active)
         t0 = time.perf_counter()
         try:
+            if fault.ENABLED and fault.hit(
+                    fault.STEP, name=self.name) is not None:
+                raise RuntimeError("injected decode step crash")
             out, kv_rows = self.runner.step(tok, pos, pages)
         except Exception as e:
-            # a broken step must not wedge callers: retire every active
-            # request with a definite error
+            if self._on_crash is not None:
+                # an ENGINE failure, not the requests': the slots stay
+                # for the supervisor's takeover
+                self._crash(e)
+                return False
             _log.exception("decode step failed")
-            err = errors.RpcError(
+            self._fail_active(active, errors.RpcError(
                 errors.EINTERNAL,
-                f"decode step failed: {type(e).__name__}: {e}")
-            for i, _ in active:
-                self._retire(i, err)
-            return
+                f"decode step failed: {type(e).__name__}: {e}"))
+            return True
         # runner.step returns host tokens, so the device work is done
         self.step_seconds += time.perf_counter() - t0
         self.steps += 1
+        with self._commit_mu:
+            self._commit_step(active, out, kv_rows)
+        return True
+
+    def _commit_step(self, active, out, kv_rows) -> None:
+        """Write the step's K/V rows and emit its tokens, for the slots
+        this loop still owns (an emitter may have cancelled one, a
+        takeover stolen all)."""
         items = [(i, s) for i, s in active if self._slots[i] is s]
         fails = self.store.write_kv_batch(
             [(s.seq, s.position - 1, kv_rows[i:i + 1]) for i, s in items])
@@ -540,10 +645,11 @@ class DecodeEngine:
             total += len(b)
         return kept
 
-    def _spec_step(self, active) -> None:
+    def _spec_step(self, active) -> bool:
         """One speculative iteration (see the module docstring).  Slots
         at different accept depths, and slots with no draft, share the
-        one fixed-shape verify batch."""
+        one fixed-shape verify batch.  Returns False when the loop must
+        stop (a supervised crash)."""
         k1 = self.draft_len + 1
         # ---- propose + lease ----
         t0 = time.perf_counter()
@@ -569,8 +675,7 @@ class DecodeEngine:
         if not any(p.branches for p in plans.values()):
             # no draft anywhere: a (draft_len+1)-wide verify would pay
             # ~k1x the work for one token per slot
-            self._step(active)
-            return
+            return self._step(active)
         # ---- the fixed-shape verify batch ----
         n = self.num_slots
         tok = np.zeros((n, k1), np.int32)
@@ -605,26 +710,38 @@ class DecodeEngine:
         # ---- verify: every row of every slot, one call ----
         t0 = time.perf_counter()
         try:
+            if fault.ENABLED and fault.hit(
+                    fault.SPEC_VERIFY, name=self.name) is not None:
+                raise RuntimeError("injected speculative verify crash")
             out, kv_rows = self.runner.verify(tok, pos, tables, base_len,
                                               mask)
         except Exception as e:
-            _log.exception("speculative verify failed")
-            # the draft leases first: a failed verify leaves no draft
-            # page behind
+            # the draft leases FIRST: a failed verify leaves no draft page
+            # behind, whether the supervisor takes over or not
             for plan in plans.values():
                 self._spec_release(plan)
-            err = errors.RpcError(
+            if self._on_crash is not None:
+                self._crash(e)
+                return False
+            _log.exception("speculative verify failed")
+            self._fail_active(active, errors.RpcError(
                 errors.EINTERNAL,
-                f"speculative verify failed: {type(e).__name__}: {e}")
-            for i, _ in active:
-                self._retire(i, err)
-            return
+                f"speculative verify failed: {type(e).__name__}: {e}"))
+            return True
         # runner.verify returns host tokens, so the device work is done
         dt = time.perf_counter() - t0
         self.step_seconds += dt
         self.verify_seconds += dt
         self.steps += 1
         self.verify_calls += 1
+        with self._commit_mu:
+            self._commit_verify(active, plans, tok, out, kv_rows)
+        return True
+
+    def _commit_verify(self, active, plans, tok, out, kv_rows) -> None:
+        """Accept, commit and emit one verify's results for the slots
+        this loop still owns; a slot released meanwhile gets its draft
+        lease back."""
         # ---- accept + commit ----
         writes, owners = [], []
         staged: dict[int, tuple] = {}
@@ -698,8 +815,9 @@ class DecodeEngine:
                 continue
             if self._slots[i] is not s:
                 # cancelled mid-commit: the release retired the sequence
-                # the slot held then; an adopted fork is still ours
-                if not s.seq.retired:
+                # the slot held then; an adopted fork is still ours (a
+                # takeover keeps the sequence for detach instead)
+                if not self._taken_over and not s.seq.retired:
                     self.store.retire(s.seq, cache=False)
                 continue
             toks, kept, proposed = st
@@ -738,6 +856,30 @@ class DecodeEngine:
             s.req.buf.push_terminal(err)
 
     # ---- lifecycle / introspection ----
+
+    def takeover(self) -> tuple:
+        """Stop a crashed or wedged engine WITHOUT finishing its
+        requests: detach every in-flight slot and queued waiter.  Returns
+        ``(slots, waiters)``; the caller now owns each slot's sequence
+        and each request's terminal.  Waits out a commit in progress (a
+        bounded section), never a step: a loop still inside
+        ``runner.step`` finds its slots gone when it returns."""
+        with self._commit_mu:
+            with self._cv:
+                self._running = False
+                self._taken_over = True
+                self._cv.notify_all()
+                stolen = [s for s in self._slots if s is not None]
+                self._slots = [None] * self.num_slots
+                waiters, self._waiters = list(self._waiters), deque()
+        return stolen, waiters
+
+    def queue_depth(self) -> float:
+        """Admission backlog per slot (queued and mid-admission waiters
+        over ``num_slots``): the ladder's queue-depth pressure."""
+        with self._cv:
+            queued = len(self._waiters) + self._admitting
+        return queued / max(1, self.num_slots)
 
     def close(self, timeout_s: float = 10.0) -> None:
         """Stop the loop; in-flight and queued requests finish with
@@ -795,6 +937,10 @@ class DecodeEngine:
             "admit_errors": self.admit_errors,
             "emit_buffer": self.emit_buffer,
             "emit_cut": self.emit_cut,
+            "heartbeat_steps": self._beat_steps,
+            "heartbeat_age_s": round(time.monotonic() - self._beat_t, 3),
+            "crashed": self._crashed is not None,
+            "degraded_clamp": self.degraded_clamp,
             "speculative": None if self._draft is None else {
                 "proposer": getattr(self._draft, "name", "draft"),
                 "draft_len": self.draft_len,

@@ -1,7 +1,8 @@
-"""Serving registration: the decode engine behind an ordinary port
-:class:`~brpc_tpu_torch.rpc.Server`.
+"""Serving registration: the batcher and the decode engine behind an
+ordinary port :class:`~brpc_tpu_torch.rpc.Server`.
 
-A copy of ``brpc_tpu/serving/service.py``'s ``Serving`` service:
+A copy of ``brpc_tpu/serving/service.py``'s ``Serving`` service and
+``ScoreClient``:
 
   * ``Serving.Generate`` -- streaming, JSON ``{"prompt": [ints...],
     "max_new_tokens": N}`` with a client stream attached
@@ -11,10 +12,16 @@ A copy of ``brpc_tpu/serving/service.py``'s ``Serving`` service:
     ``"error"``/``"error_text"`` when the generation failed) and the
     stream's close.  ``"speculative": false`` opts the request out of a
     speculative engine's drafts.
-  * ``Serving.Score`` and ``Serving.ScoreT`` answer ENOMETHOD "no
-    batcher registered": the batcher comes with its own slice, and
-    ``ScoreT``'s tensorframe wire with it (until then ``ScoreT`` takes
-    raw bytes).
+  * ``Serving.Score`` -- unary, JSON ``{"x": [numbers...]}`` ->
+    ``{"y": [...]}``: the handler defers the RPC into the
+    :class:`~brpc_tpu_torch.serving.batcher.DynamicBatcher`, whose
+    drainer completes it (deadline-doomed requests are shed up front
+    with ELIMIT);
+  * ``Serving.ScoreT`` -- the same on the tensorframe wire: a rank-1
+    tensor field ``"x"`` in, a float32 tensor ``"y"`` out.
+  Both answer ENOMETHOD "no batcher registered" without a batcher.
+  :class:`ScoreClient` prefers ``ScoreT`` and downgrades to json
+  ``Score``, for good, on ENOMETHOD.
 
 Left out (ROADMAP): the pull-based ``prefix_fetcher`` (KV migration),
 the multi-model ``deployments`` table (model plane) and the chunked
@@ -23,6 +30,9 @@ HTTP generate route.
 from __future__ import annotations
 
 import json
+from typing import Optional
+
+import numpy as np
 
 from .. import errors
 from ..rpc.service import Service, method
@@ -31,18 +41,42 @@ from ..rpc.service import Service, method
 class ServingService(Service):
     NAME = "Serving"
 
-    def __init__(self, engine=None):
+    def __init__(self, batcher=None, engine=None):
+        self._batcher = batcher
         self._engine = engine
 
     @method(request="json", response="json")
     def Score(self, cntl, req):
-        cntl.set_failed(errors.ENOMETHOD, "no batcher registered")
-        return None
+        batcher = self._batcher
+        if batcher is None:
+            cntl.set_failed(errors.ENOMETHOD, "no batcher registered")
+            return None
+        x = (req or {}).get("x")
+        if x is None:
+            cntl.set_failed(errors.EREQUEST, 'missing "x"')
+            return None
+        batcher.submit(
+            cntl, np.asarray(x, dtype=np.float32),
+            transform=lambda row: {"y": np.asarray(row).tolist()})
+        return None   # deferred: the batch drainer completes the RPC
 
-    @method(request="raw", response="raw")
+    @method(request="tensorframe", response="tensorframe")
     def ScoreT(self, cntl, req):
-        cntl.set_failed(errors.ENOMETHOD, "no batcher registered")
-        return None
+        """Score on the binary tensor wire: the row rides as a float32
+        tensor field both ways."""
+        batcher = self._batcher
+        if batcher is None:
+            cntl.set_failed(errors.ENOMETHOD, "no batcher registered")
+            return None
+        x = (req or {}).get("x")
+        if not isinstance(x, np.ndarray) or x.ndim != 1:
+            cntl.set_failed(errors.EREQUEST,
+                            'need rank-1 tensor field "x"')
+            return None
+        batcher.submit(
+            cntl, np.asarray(x, dtype=np.float32),
+            transform=lambda row: {"y": np.asarray(row, np.float32)})
+        return None   # deferred: the batch drainer completes the RPC
 
     @method(request="json", response="json")
     def Generate(self, cntl, req):
@@ -91,9 +125,44 @@ class ServingService(Service):
         return {"accepted": True, "req_id": rid, "prefix_hit": hit}
 
 
-def register_serving(server, engine=None) -> ServingService:
+class ScoreClient:
+    """The client half of Score: prefers the binary ``ScoreT`` wire and
+    downgrades, for good, to json ``Score`` when the peer answers
+    ENOMETHOD (a server without ``ScoreT``).  Both paths return the same
+    float32 rows."""
+
+    def __init__(self, channel):
+        self._ch = channel
+        self._mode: Optional[str] = None     # None | "frame" | "json"
+        self.n_negotiation_fallbacks = 0
+
+    @property
+    def wire_mode(self) -> Optional[str]:
+        return self._mode
+
+    def score(self, x, **kw) -> np.ndarray:
+        x = np.ascontiguousarray(x, dtype=np.float32)
+        if self._mode != "json":
+            try:
+                resp = self._ch.call_sync(
+                    "Serving", "ScoreT", {"x": x},
+                    serializer="tensorframe", **kw)
+                self._mode = "frame"
+                return np.asarray(resp["y"], np.float32)
+            except errors.RpcError as e:
+                if e.code != errors.ENOMETHOD:
+                    raise
+                self._mode = "json"
+                self.n_negotiation_fallbacks += 1
+        resp = self._ch.call_sync("Serving", "Score", {"x": x.tolist()},
+                                  serializer="json", **kw)
+        return np.asarray(resp["y"], np.float32)
+
+
+def register_serving(server, batcher=None, engine=None) -> ServingService:
     """Register the ``Serving`` service on ``server`` (before
-    ``server.start()``)."""
-    svc = ServingService(engine)
+    ``server.start()``): ``batcher`` answers Score/ScoreT, ``engine`` (a
+    DecodeEngine or an EngineSupervisor) Generate."""
+    svc = ServingService(batcher, engine)
     server.add_service(svc)
     return svc

@@ -65,7 +65,34 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      inter-token gap (p50, p99), the native build's seconds and the
      phase's paged-kernel launches, with the card's name and power
      limit;
-  7. prints ``{"kernels": [...]}``, the card line, and as the LAST line
+  7. control-plane phase, the wide configuration again, the plain run's
+     weights, prompts and dense oracle: one port ``Server`` with
+     ``register_serving(batcher=DynamicBatcher(runner), engine=
+     EngineSupervisor(...))``.  Score: 32 concurrent ``ScoreT`` calls
+     (tensorframe, through ``ScoreClient``) and 8 json ``Score`` calls
+     over the prompts, through the batcher (max batch 8, length buckets
+     64/256) into ``TransformerRunner.score`` -- the flash kernel once
+     per layer per batch -- every row's ids equal to the argmax of an
+     unbatched ``dense_forward`` of that row on the card, its last id
+     the oracle's first token.  Supervised Generate: 8 concurrent
+     32-token streams over RPC with one ``serving.step`` crash injected
+     (the port's ``fault.FaultPlan``), the engine rebuilt on the same
+     store and every stream resumed exactly once from its pinned prefix
+     (restarts 1, re-admissions hitting the detached pages), then an
+     uncrashed pass on the same supervisor; then Score again through a
+     prefix-cached batcher (``score_with_offsets`` over the warm store:
+     each row its uncached suffix, held to the unbatched forward of that
+     suffix at its offsets; prefix skip > 0); brownout: with the
+     supervisor's level floor at 1 a deadline-less Score is shed with
+     ELIMIT, a deadlined one served; last, an NGram speculative engine
+     under its own supervisor and server, crashed once through
+     ``serving.spec_verify``.  Every stream equal to the oracle, every
+     paged call at 2 CUDA launches, the pool at its baseline after each
+     close.  Prints rows/s, batch size, pad waste, queue delay p50/p99,
+     client-timed latency per wire, detect-to-rebuild and
+     crash-to-first-resumed-token times, tokens/s of the crashed pass
+     beside the uncrashed one, and the phase's launches;
+  8. prints ``{"kernels": [...]}``, the card line, and as the LAST line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check, build or launch exits non-zero before the result.
@@ -96,6 +123,12 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 NEW_TOKENS = 32
 N_REQUESTS = 8
 RPC_PAIRS = 10       # warm passes over RPC and direct, in alternating order
+SCORE_T_CALLS = 32   # concurrent ScoreT calls of the control-plane phase
+SCORE_JSON_CALLS = 8
+# ladder thresholds no burst of the control-plane phase can cross: its
+# brownout is driven by the level floor alone
+CALM_LADDER = ({"queue_delay_us": float("inf"), "pool_ratio": 9.9,
+                "queue_depth": 1e9},) * 3
 
 
 class SmokeError(RuntimeError):
@@ -935,6 +968,352 @@ def serve_rpc(dev, cfg, ctx, card):
     }
 
 
+# ---- control-plane phase: Score through the batcher, the supervisor -------
+
+class Counts:
+    """Kernel calls summed over the phase's windows: every count is set
+    to 0 when a window opens and read when it closes, so the checks'
+    own reference computations between windows are not counted."""
+
+    def __init__(self):
+        self.paged = self.paged_cuda = self.flash = 0
+
+    def window(self, body):
+        import torch
+        import brpc_tpu_torch.ops.attention as attn
+        import brpc_tpu_torch.ops.paged_attention as pa
+        torch.cuda.synchronize()
+        pa.paged_attention.launches = 0
+        pa.paged_attention.cuda_launches = 0
+        attn.flash_attention.launches = 0
+        try:
+            return body()
+        finally:
+            self.paged += pa.paged_attention.launches
+            self.paged_cuda += pa.paged_attention.cuda_launches
+            self.flash += attn.flash_attention.launches
+
+    def as_dict(self):
+        return {"paged_attention": self.paged,
+                "flash_attention": self.flash}
+
+
+def unbatched_ids(params, cfg, dev, toks, offset=0):
+    """Greedy next-token ids at every position of ONE row through the
+    dense forward on the card, and the row's top-2 logit gaps."""
+    import torch
+    import brpc_tpu_torch.models as models
+    t = torch.tensor([list(toks)], dtype=torch.int64, device=dev)
+    pos = torch.arange(offset, offset + len(toks), dtype=torch.int32,
+                       device=dev)[None]
+    logits = models.dense_forward(params, cfg, t, pos)[0]
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return (torch.argmax(logits, dim=-1).cpu().numpy(),
+            (top2[:, 0] - top2[:, 1]).cpu().numpy())
+
+
+def hold_rows(label, got, want):
+    """Every scored row's ids equal to its unbatched forward's, exactly;
+    a mismatch names the row, the position and the unbatched logit
+    gap there."""
+    bad = []
+    for k, (i, y) in enumerate(got):
+        ids, gaps = want[i]
+        y = np.asarray(y).astype(np.int64)
+        if y.shape != ids.shape or not np.array_equal(y, ids):
+            pos = int(np.argmax(y != ids)) if y.shape == ids.shape else -1
+            bad.append({"call": k, "row": i, "position": pos,
+                        "batched": int(y[pos]) if pos >= 0 else None,
+                        "unbatched": int(ids[pos]) if pos >= 0 else None,
+                        "unbatched_top2_gap": float(gaps[pos])
+                        if pos >= 0 else None})
+    check(not bad, f"{label}: scored ids differ from the unbatched "
+                   f"forward: {bad[:4]}")
+
+
+def score_calls(port, rows, n_frame, n_json, label):
+    """``n_frame`` ScoreT calls through ScoreClient (tensorframe) and
+    ``n_json`` json Score calls, all issued at once, rows cycling over
+    ``rows``.  Returns ``[(row index, y)]``, client-timed latencies per
+    wire, and the wall time."""
+    import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.serving as serving
+    ch = rpc.Channel(f"127.0.0.1:{port}", timeout_ms=120_000)
+    out = [None] * (n_frame + n_json)
+    lat = {"tensorframe": [], "json": []}
+    errs = []
+
+    def one(k):
+        i = k % len(rows)
+        x = np.asarray(rows[i], np.float32)
+        try:
+            t0 = time.perf_counter()
+            if k < n_frame:
+                cli = serving.ScoreClient(ch)
+                y = cli.score(x)
+                check(cli.wire_mode == "frame",
+                      f"{label}: ScoreT negotiated {cli.wire_mode}")
+                wire = "tensorframe"
+            else:
+                y = np.asarray(ch.call_sync(
+                    "Serving", "Score", {"x": x.tolist()},
+                    serializer="json")["y"], np.float32)
+                wire = "json"
+            lat[wire].append(time.perf_counter() - t0)
+            out[k] = (i, y)
+        except Exception as e:
+            errs.append(f"call {k}: {type(e).__name__}: {e}")
+
+    ts = [threading.Thread(target=one, args=(k,))
+          for k in range(n_frame + n_json)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    check(not errs and all(o is not None for o in out),
+          f"{label}: {errs[:4] or 'a call hung'}")
+    return out, lat, wall
+
+
+def serve_control(dev, cfg, ctx, card):
+    """Step 7 (see the module docstring): (b)'s weights, prompts and dense
+    oracle behind one Server with a DynamicBatcher (Score/ScoreT) and an
+    EngineSupervisor (Generate)."""
+    import torch
+    import brpc_tpu_torch.fault as fault
+    import brpc_tpu_torch.models as models
+    import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.serving as serving
+    import brpc_tpu_torch.serving.speculative as spec
+    from brpc_tpu_torch import errors
+    geo, prompts, oracle = ctx["geometry"], ctx["prompts"], ctx["oracle"]
+    params = ctx["params"]
+    toks = N_REQUESTS * NEW_TOKENS
+    counts = Counts()
+    # the checks' references, computed outside every counting window
+    want = [unbatched_ids(params, cfg, dev, p) for p in prompts]
+    for i, (ids, _) in enumerate(want):
+        check(int(ids[-1]) == oracle[i][0],
+              f"b control: row {i}'s last unbatched id {int(ids[-1])} is "
+              f"not the oracle's first token {oracle[i][0]}")
+
+    def supervised(label, store, **engine_kw):
+        def factory():
+            runner = models.TransformerRunner(params, cfg, store=store,
+                                              device=dev, name=label)
+            return serving.DecodeEngine(
+                runner=runner, store=store, num_slots=geo["num_slots"],
+                max_pages_per_slot=geo["max_pages"],
+                prefill_buckets=geo["buckets"], device=dev, name=label,
+                **engine_kw)
+        return factory
+
+    def crashed_pass(label, port, sup, store, site, after):
+        """One pass of 8 streams over RPC with one crash at ``site``:
+        every stream the oracle's, exactly once, one restart, and the
+        re-admissions hitting the detached pages."""
+        plan = fault.FaultPlan(7).on(site, fault.ERROR, times=1,
+                                     after=after)
+        hit0 = store.hit_tokens
+        with fault.injected(plan):
+            streams, _, ttft, gaps, wall = counts.window(
+                lambda: rpc_generate_all(port, prompts, label))
+        check(sup.join_idle(60), f"{label}: the supervisor did not go idle")
+        st = sup.stats()
+        rec = st["last_recovery"] or {}
+        check(plan.injected.get(site) == 1,
+              f"{label}: the fault fired {plan.injected}")
+        check(st["restarts"] == 1 and st["readmitted"] >= 1,
+              f"{label}: restarts {st['restarts']}, readmitted "
+              f"{st['readmitted']}")
+        check(rec.get("pinned_seqs", 0) > 0
+              and store.hit_tokens - hit0 > 0,
+              f"{label}: the re-admissions hit no pinned prefix "
+              f"({rec}, {store.hit_tokens - hit0} hit tokens)")
+        check("detect_to_first_token_ms" in rec,
+              f"{label}: no resumed token after the rebuild ({rec})")
+        for i, (c, o) in enumerate(zip(streams, oracle)):
+            check(c == o, f"{label}: stream {i} streamed {c}, dense oracle "
+                          f"{o}")
+        return {"tokens_per_s": toks / wall, "wall_s": wall,
+                "restarts": st["restarts"], "readmitted": st["readmitted"],
+                "resumed_tokens": st["resumed_tokens"],
+                "readmit_hit_tokens": store.hit_tokens - hit0,
+                "recovery": rec, "ttft_ms_p50": 1e3 * pct(ttft, 50),
+                "gap_ms_p99": 1e3 * pct(gaps, 99)}
+
+    def shut(label, server, sup, store, free0, batchers=()):
+        check(sup.join_idle(30), f"{label}: the supervisor did not go idle")
+        live = store.stats()["live_seqs"]
+        check(live == 0, f"{label}: {live} sequences still live")
+        server.stop()
+        server.join()
+        sup.close()
+        for b in batchers:
+            b.close()
+        store.clear()
+        check(store.pagepool.blocks_leased() == 0 and
+              store.pagepool.pool.stats()["classes"] == free0,
+              f"{label}: the page pool did not return to its baseline")
+
+    label = "b control"
+    store = models.make_store_for(cfg, page_tokens=geo["page_tokens"],
+                                  max_blocks=geo["max_blocks"], device=dev,
+                                  name=label)
+    free0 = store.pagepool.pool.stats()["classes"]
+    score_runner = models.TransformerRunner(params, cfg, device=dev,
+                                            name="b score")
+    batcher = serving.DynamicBatcher(
+        score_runner, max_batch_size=8, max_delay_us=5000,
+        length_buckets=(64, 256), dtype=np.int32, name="b_score")
+    pbatcher = serving.DynamicBatcher(
+        score_runner, max_batch_size=8, max_delay_us=5000,
+        length_buckets=(64, 256), prefix_cache=store, dtype=np.int32,
+        name="b_score_prefix")
+    sup = serving.EngineSupervisor(
+        supervised(label, store), store=store, batcher=batcher,
+        heartbeat_deadline_s=30.0, check_interval_s=0.02,
+        ladder=CALM_LADDER, name="b_control")
+    server = rpc.Server()
+    serving.register_serving(server, batcher=batcher, engine=sup)
+    server.start("127.0.0.1", 0)
+    try:
+        # -- Score: 32 ScoreT + 8 json, through the batcher into K2
+        b0 = batcher.stats()["batches"]
+        flash0 = counts.flash
+        scored, lat, t_score = counts.window(lambda: score_calls(
+            server.port, prompts, SCORE_T_CALLS, SCORE_JSON_CALLS,
+            "b control score"))
+        bst = batcher.stats()
+        qd50 = batcher.queue_delay_rec.latency_percentile(0.5)
+        batches = bst["batches"] - b0
+        check(counts.flash - flash0 == cfg.n_layers * batches,
+              f"b control score: {counts.flash - flash0} flash calls for "
+              f"{batches} batches of {cfg.n_layers} layers")
+        hold_rows("b control score", scored, want)
+        # one more batch of 8 ScoreT rows under the profiler: where a
+        # Score batch's device time goes, and the device's busy share
+        (prof_rows, _, _), prof = counts.window(lambda: profile_window(
+            lambda: score_calls(server.port, prompts, N_REQUESTS, 0,
+                                "b control score profiled")))
+        hold_rows("b control score profiled", prof_rows, want)
+        score = {
+            "rows": len(scored), "rows_per_s": len(scored) / t_score,
+            "wall_s": t_score, "batches": batches,
+            "avg_batch_size": bst["avg_batch_size"],
+            "pad_waste_ratio": bst["pad_waste_ratio"],
+            "queue_delay_p50_us": qd50,
+            "queue_delay_p99_us": bst["queue_delay_p99_us"],
+            "exec_ema_ms": bst["exec_ema_ms"],
+            "flash_calls": counts.flash - flash0,
+            "profile": prof,
+            "latency_ms": {w: {"p50": 1e3 * pct(v, 50),
+                               "p99": 1e3 * pct(v, 99)}
+                           for w, v in lat.items()}}
+        # -- supervised Generate: one step crash, then an uncrashed pass
+        crashed = crashed_pass("b control crash", server.port, sup, store,
+                               fault.STEP, after=8)
+        store.clear()                 # the uncrashed pass runs cold too
+        uncrashed, _, _, _, t_plain = counts.window(
+            lambda: rpc_generate_all(server.port, prompts,
+                                     "b control uncrashed"))
+        for i, (c, o) in enumerate(zip(uncrashed, oracle)):
+            check(c == o, f"b control uncrashed: stream {i} streamed {c}, "
+                          f"dense oracle {o}")
+        # -- Score again, prefix-cached: each row its uncached suffix
+        hits = [store.probe(p) for p in prompts]
+        suffix_want = [unbatched_ids(params, cfg, dev, p[h:], offset=h)
+                       for p, h in zip(prompts, hits)]
+        outs = [None] * N_REQUESTS
+
+        def prefixed(i):
+            outs[i] = (i, pbatcher.submit_wait(
+                np.asarray(prompts[i], np.int32), timeout_s=120))
+
+        def prefixed_all():
+            ts = [threading.Thread(target=prefixed, args=(i,))
+                  for i in range(N_REQUESTS)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(300)
+
+        counts.window(prefixed_all)
+        check(all(o is not None for o in outs),
+              "b control prefix score: a call hung")
+        hold_rows("b control prefix score", outs, suffix_want)
+        pst = pbatcher.stats()
+        check(pst["prefix_skip_ratio"] > 0,
+              f"b control prefix score: skip ratio "
+              f"{pst['prefix_skip_ratio']}")
+        # -- brownout: level floor 1 sheds the deadline-less lane
+        shed0 = batcher.brownout_shed.get_value()
+        sup.set_level_floor(1)
+        t_end = time.monotonic() + 10
+        while batcher.brownout < 1 and time.monotonic() < t_end:
+            time.sleep(0.01)
+        check(batcher.brownout == 1, "b control: the brownout never applied")
+        x0 = {"x": [float(t) for t in prompts[0]]}
+        try:
+            rpc.Channel(f"127.0.0.1:{server.port}", timeout_ms=0
+                        ).call_sync("Serving", "Score", x0,
+                                    serializer="json")
+            shed_code = 0
+        except errors.RpcError as e:
+            shed_code = e.code
+        check(shed_code == errors.ELIMIT,
+              f"b control brownout: a deadline-less Score got {shed_code}")
+        served = counts.window(lambda: rpc.Channel(
+            f"127.0.0.1:{server.port}", timeout_ms=120_000).call_sync(
+                "Serving", "Score", x0, serializer="json"))
+        hold_rows("b control brownout", [(0, served["y"])], want)
+        brown_shed = batcher.brownout_shed.get_value() - shed0
+        check(brown_shed == 1, f"b control: brownout_shed rose by "
+                               f"{brown_shed}")
+        sup.set_level_floor(0)
+        pool_pages = store.stats()["pages"]["pages_in_use"]
+    finally:
+        shut(label, server, sup, store, free0, (batcher, pbatcher))
+    # -- the speculative engine under its own supervisor, one verify crash
+    label = "b control spec"
+    store = models.make_store_for(cfg, page_tokens=geo["page_tokens"],
+                                  max_blocks=geo["max_blocks"], device=dev,
+                                  name=label)
+    free0 = store.pagepool.pool.stats()["classes"]
+    sup = serving.EngineSupervisor(
+        supervised(label, store, draft_runner=spec.NGramProposer(),
+                   draft_len=4),
+        store=store, heartbeat_deadline_s=30.0, check_interval_s=0.02,
+        ladder=CALM_LADDER, name="b_control_spec")
+    server = rpc.Server()
+    serving.register_serving(server, engine=sup)
+    server.start("127.0.0.1", 0)
+    try:
+        crashed_spec = crashed_pass("b control spec crash", server.port,
+                                    sup, store, fault.SPEC_VERIFY,
+                                    after=2)
+    finally:
+        shut(label, server, sup, store, free0)
+    check(counts.paged > 0 and counts.paged_cuda == 2 * counts.paged,
+          f"b control: {counts.paged} paged calls, {counts.paged_cuda} "
+          f"CUDA launches")
+    return {
+        "config": "b control", "card": card, "score": score,
+        "prefix_score": {"rows": len(outs),
+                         "prefix_skip_ratio": pst["prefix_skip_ratio"],
+                         "hit_tokens": hits,
+                         "pad_waste_ratio": pst["pad_waste_ratio"]},
+        "crashed": crashed, "uncrashed_tokens_per_s": toks / t_plain,
+        "crashed_spec": crashed_spec,
+        "brownout": {"deadline_less_code": shed_code,
+                     "brownout_shed": brown_shed},
+        "pages_in_use_before_close": pool_pages,
+        "launches": counts.as_dict(), "paged_cuda_launches": counts.paged_cuda,
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1027,11 +1406,18 @@ def main() -> int:
         run_flash(dev, "a oracle B1 S95 H4/2 D8", 1, 95, 4, 2, 8, "float32"),
         run_flash(dev, "b oracle B1 S231 H8/4 D128", 1, 231, 8, 4, 128,
                   "float32"),
+        # Serving.Score's batches: max batch 8 at the 256 length bucket
+        run_flash(dev, "b score B8 S256 H8/4 D128 f32 causal", 8, 256, 8, 4,
+                  128, "float32"),
         run_flash(dev, "bench B4 S4096 H8 D128 f32", 4, 4096, 8, 8, 128,
                   "float32"),
         run_flash(dev, "bench B4 S4096 H8 D128 bf16", 4, 4096, 8, 8, 128,
                   "bfloat16"),
     ]
+    for row in flash:
+        check(row["cuda_launches_per_call"] == 1,
+              f"{row['shape']}: {row['cuda_launches_per_call']} CUDA "
+              f"launches per call ({row['device_ops']}), not 1")
     for row in paged + flash:
         print(f"kernel {row['shape']}: err {row['max_abs_err']:.3g} "
               f"device ms {row['ms']:.4f} (eager "
@@ -1112,11 +1498,37 @@ def main() -> int:
           f"{r['native_build_s']} s; launches {r['launches']} "
           f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
 
+    # -- control-plane phase: Score through the batcher, the supervisor
+    served_control = serve_control(dev, cfg_b, ctx_b, card)
+    r = served_control
+    sc, cr, cs = r["score"], r["crashed"], r["crashed_spec"]
+    print(f"serve b control [{card}]: score {sc['rows']} rows in "
+          f"{sc['batches']} batches, {sc['rows_per_s']:.1f} rows/s, avg "
+          f"batch {sc['avg_batch_size']}, pad waste "
+          f"{sc['pad_waste_ratio']}, queue delay p50/p99 "
+          f"{sc['queue_delay_p50_us']:.0f}/{sc['queue_delay_p99_us']:.0f} "
+          f"us, client latency ms {json.dumps(sc['latency_ms'])}, flash "
+          f"calls {sc['flash_calls']}, device busy (profiled batch) "
+          f"{sc['profile']['device_busy_share']}; prefix-cached score skip "
+          f"{r['prefix_score']['prefix_skip_ratio']}; step crash: detect"
+          f"->rebuild {cr['recovery'].get('detect_to_rebuild_ms')} ms, "
+          f"->first resumed token "
+          f"{cr['recovery'].get('detect_to_first_token_ms')} ms, crashed "
+          f"pass {cr['tokens_per_s']:.1f} tok/s against uncrashed "
+          f"{r['uncrashed_tokens_per_s']:.1f}, readmitted "
+          f"{cr['readmitted']} ({cr['readmit_hit_tokens']} hit tokens); "
+          f"spec verify crash: detect->rebuild "
+          f"{cs['recovery'].get('detect_to_rebuild_ms')} ms, ->first "
+          f"resumed token {cs['recovery'].get('detect_to_first_token_ms')}"
+          f" ms, {cs['tokens_per_s']:.1f} tok/s; brownout "
+          f"{json.dumps(r['brownout'])}; launches {r['launches']} "
+          f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
+
     def entry(name, source, replaces, rows, main_row):
         m = rows[main_row]
         err = max(r["max_abs_err"] for r in rows)
-        launches = sum(r["launches"][name]
-                       for r in served + speculative + [served_rpc])
+        launches = sum(r["launches"][name] for r in
+                       served + speculative + [served_rpc, served_control])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "max_abs_diff": err,
@@ -1134,13 +1546,13 @@ def main() -> int:
         entry("paged_attention", "brpc_tpu_torch/csrc/paged_attention.cu",
               "brpc_tpu/ops/paged_attention.py:178", paged, 2),
         entry("flash_attention", "brpc_tpu_torch/csrc/flash_attention.cu",
-              "brpc_tpu/ops/attention.py:82", flash, 1),
+              "brpc_tpu/ops/attention.py:82", flash, 2),
     ]
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "ptxas": ptxas, "sass": sass, "kernels": kernels,
               "serving": served, "speculative": speculative,
-              "rpc_serving": served_rpc,
+              "rpc_serving": served_rpc, "control_serving": served_control,
               "native_build_s": cbuild.build_seconds,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,

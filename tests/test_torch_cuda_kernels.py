@@ -32,7 +32,9 @@ from brpc_tpu_torch.ops.paged_attention import (MAX_LOCAL_WIDTH,
                                                 paged_attention_split_plain,
                                                 split_plan)
 import brpc_tpu_torch.rpc as rpc
-from brpc_tpu_torch.serving import DecodeEngine, register_serving
+from brpc_tpu_torch import fault
+from brpc_tpu_torch.serving import (DecodeEngine, DynamicBatcher,
+                                    EngineSupervisor, register_serving)
 from brpc_tpu_torch.serving.speculative import (DraftModelProposer,
                                                 NGramProposer)
 
@@ -469,6 +471,100 @@ def test_serving_generate_over_loopback_on_card(cuda):
         server.stop()
         server.join()
         eng.close()
+        store.clear()
+    assert store.pagepool.blocks_leased() == 0 and \
+        store.pagepool.pool.stats()["classes"] == free0
+
+
+@pytest.mark.parametrize("s", [64, 256])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_score_batcher_on_card_equals_unbatched_forward(cuda, b, s):
+    """``b`` rows of about ``s`` tokens through a DynamicBatcher over a
+    runner on the card (``TransformerRunner.score`` -> the flash kernel
+    once per layer per batch): every row's ids equal the argmax of that
+    row's own unbatched dense forward, exactly."""
+    cfg = T.TransformerConfig(vocab=512, d_model=256, n_layers=2,
+                              n_heads=8, n_kv_heads=4, head_dim=32,
+                              d_ff=512)
+    params = T.init_runner_params(cfg, 5, device=cuda)
+    runner = T.TransformerRunner(params, cfg, device=cuda)
+    rng = np.random.default_rng(b * s)
+    rows = [rng.integers(0, cfg.vocab, s - int(rng.integers(0, 8))).tolist()
+            for _ in range(b)]
+    batcher = DynamicBatcher(runner, max_batch_size=8, max_delay_us=50_000,
+                             length_buckets=(64, 256), dtype=np.int32,
+                             name=f"t_cuda_score_{b}_{s}")
+    out = [None] * b
+    try:
+        attention.flash_attention.launches = 0
+
+        def one(i):
+            out[i] = batcher.submit_wait(np.asarray(rows[i], np.int32),
+                                         timeout_s=120)
+
+        ts = [threading.Thread(target=one, args=(i,)) for i in range(b)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(180)
+        batches = batcher.stats()["batches"]
+        assert attention.flash_attention.launches == \
+            cfg.n_layers * batches > 0
+    finally:
+        batcher.close()
+    for row, got in zip(rows, out):
+        logits = T.dense_forward(
+            params, cfg, torch.tensor([row], device=cuda),
+            torch.arange(len(row), dtype=torch.int32, device=cuda)[None])
+        want = torch.argmax(logits[0], dim=-1).cpu().numpy()
+        np.testing.assert_array_equal(np.asarray(got).astype(np.int64), want)
+
+
+def test_supervisor_on_card_recovers_a_step_crash(cuda):
+    """An EngineSupervisor over an engine on the card, one injected
+    ``serving.step`` crash mid-decode: the engine is rebuilt on the same
+    store, every stream equals ``dense_generate`` exactly once, the
+    re-admissions hit the detached prefix, and the pool ends at its
+    baseline."""
+    cfg = T.TransformerConfig()
+    params = T.init_runner_params(cfg, 9, device=cuda)
+    store = T.make_store_for(cfg, page_tokens=4, max_blocks=16, device=cuda,
+                             name="t_cuda_sup")
+    free0 = store.pagepool.pool.stats()["classes"]
+
+    def factory():
+        runner = T.TransformerRunner(params, cfg, store=store, device=cuda)
+        return DecodeEngine(runner=runner, store=store, num_slots=3,
+                            max_pages_per_slot=16, prefill_buckets=(16,),
+                            device=cuda, name="t_cuda_sup")
+
+    sup = EngineSupervisor(factory, store=store, check_interval_s=0.02,
+                           name="t_cuda_sup")
+    prompts = [[5, 17, 42, 9, 77, 3, 8, 8, 1 + i] for i in range(5)]
+    want = [T.dense_generate(params, cfg, p, 10, device=cuda)
+            for p in prompts]
+    plan = fault.FaultPlan(3).on(fault.STEP, fault.ERROR, times=1,
+                                 after=3)
+    recs = []
+    try:
+        with fault.injected(plan):
+            for p in prompts:
+                rec = {"toks": [], "errs": [], "ev": threading.Event()}
+                sup.submit(p, 10, rec["toks"].append,
+                           lambda e, r=rec: (r["errs"].append(e),
+                                             r["ev"].set()))
+                recs.append(rec)
+            for rec in recs:
+                assert rec["ev"].wait(120), "a generation hung"
+        assert plan.injected == {fault.STEP: 1}
+        for rec, w in zip(recs, want):
+            assert rec["errs"] == [None] and rec["toks"] == w
+        st = sup.stats()
+        assert st["restarts"] == 1 and st["readmitted"] >= 1
+        assert st["last_recovery"]["pinned_seqs"] >= 1
+        assert sup.join_idle(10)
+    finally:
+        sup.close()
         store.clear()
     assert store.pagepool.blocks_leased() == 0 and \
         store.pagepool.pool.stats()["classes"] == free0

@@ -204,15 +204,23 @@ def test_engine_rejects_mismatched_store_and_device():
 
 def test_port_runs_without_jax_or_brpc_tpu():
     """In a fresh interpreter: importing the port (its speculative
-    module, its RPC front and its Serving service too), serving one CPU
-    request through a speculative engine and one ``Serving.Generate``
-    over loopback through the port's own server and channel leaves jax
-    and the JAX package out of sys.modules; the only native core mapped
-    is the port's own build."""
+    module, its RPC front, its Serving service, the batcher, the
+    supervisor, tensorframe, bvar and fault too), serving one CPU
+    request through a speculative engine, one ``Serving.Generate`` over
+    loopback through the port's own server and channel (the engine
+    behind an ``EngineSupervisor``), and one ``Serving.ScoreT`` through
+    a ``DynamicBatcher`` over the runner leaves jax and the JAX package
+    out of sys.modules; the only native core mapped is the port's own
+    build."""
     code = textwrap.dedent("""
         import json, sys, threading
+        import numpy as np
         import brpc_tpu_torch
         import brpc_tpu_torch.rpc as rpc
+        import brpc_tpu_torch.bvar, brpc_tpu_torch.fault
+        import brpc_tpu_torch.rpc.tensorframe
+        from brpc_tpu_torch.serving import (DynamicBatcher,
+            EngineSupervisor, ScoreClient)
         from brpc_tpu_torch.models import (TransformerConfig,
             TransformerRunner, init_runner_params, make_store_for)
         from brpc_tpu_torch.serving import DecodeEngine
@@ -228,8 +236,11 @@ def test_port_runs_without_jax_or_brpc_tpu():
         toks, done = [], threading.Event()
         eng.submit([1, 2, 3], 2, toks.append, lambda e: done.set())
         assert done.wait(60) and len(toks) == 2, toks
+        sup = EngineSupervisor(lambda: eng, store=store)
+        batcher = DynamicBatcher(runner, max_batch_size=2,
+                                 length_buckets=(8,), dtype=np.int32)
         server = rpc.Server()
-        register_serving(server, engine=eng)
+        register_serving(server, batcher=batcher, engine=sup)
         server.start("127.0.0.1", 0)
         msgs, closed = [], threading.Event()
 
@@ -250,7 +261,10 @@ def test_port_runs_without_jax_or_brpc_tpu():
         assert resp["accepted"] and closed.wait(60), (resp, msgs)
         assert [m["token"] for m in msgs if "token" in m] == toks, msgs
         assert msgs[-1] == {"done": True}, msgs
-        server.stop(); server.join(); eng.close()
+        y = ScoreClient(rpc.Channel(f"127.0.0.1:{server.port}",
+                                    timeout_ms=30000)).score([1, 2, 3])
+        assert y.shape == (3,) and int(y[-1]) == toks[0], (y, toks)
+        server.stop(); server.join(); sup.close(); batcher.close()
         cores = sorted({ln.split()[-1].rsplit("/", 1)[-1]
                         for ln in open("/proc/self/maps")
                         if "libbrpc_core" in ln})

@@ -176,6 +176,61 @@ def test_draft_leases_match_reference_store():
     assert ts.pagepool.blocks_leased() == 0
 
 
+# ---- crash recovery: detach and RecoveryPin --------------------------------
+
+def test_detach_matches_reference_store():
+    """The counterpart of test_kvcache.py's detach test, both packages
+    through one sequence of calls: a LIVE sequence's full materialised
+    pages land in the radix tree with a recovery pin; a re-admission
+    hits them; eviction cannot free them while pinned; the released pin
+    (idempotent) leaves them ordinarily evictable; detach of a retired
+    sequence is an empty pin.  The same radix contents, pinned counts
+    and hits in both, and the pin counts pages, never blocks."""
+    cfg_j = jax_runner.TransformerConfig(n_layers=1, n_kv_heads=2,
+                                         head_dim=8, n_heads=4)
+    rng = np.random.default_rng(43)
+    f, rows = _rows_for(rng, CFG, 12)
+    js = jax_runner.make_store_for(cfg_j, page_tokens=4, max_blocks=4,
+                                   name="t_torch_detach_jax")
+    ts = make_store_for(CFG, page_tokens=4, max_blocks=4, device=CPU,
+                        name="t_torch_detach_port")
+    probes = [list(range(10)) + [99], list(range(4)) + [7, 7],
+              list(range(8)), [5, 5, 5, 5, 5]]
+
+    def drive(store, rows_of):
+        seen = []
+        seq = store.admit(list(range(10)))       # 2 full pages + a tail
+        store.write_kv(seq, 0, rows_of(0, 10))
+        pin = store.detach(seq)
+        seen.append((seq.retired, seq.pages, len(pin), pin.tokens,
+                     store.radix.node_count(),
+                     [store.probe(p) for p in probes]))
+        re = store.admit(list(range(10)) + [99])
+        seen.append(re.prefix_hit_tokens)
+        store.retire(re, cache=False)
+        seen.append(store.evict_pages(1 << 20))  # pinned: nothing freed
+        seen.append(store.radix.node_count())
+        pin.release()
+        pin.release()                            # idempotent
+        seen.append(store.evict_pages(1 << 20))
+        seen.append(store.pagepool.blocks_leased())
+        seen.append(len(store.detach(re)))       # retired: empty pin
+        seen.append(store.stats()["detached"])
+        return seen
+
+    try:
+        jres = drive(js, lambda a, b: rows[a:b])
+        tres = drive(ts, lambda a, b: torch.from_numpy(f[a:b]))
+        assert tres == jres
+        assert tres[0][:4] == (True, [], 2, 8)
+        assert tres[1:8] == [8, 0, 2, 2, 0, 0, 1]
+    finally:
+        js.clear()
+        js.close()
+        ts.clear()
+    assert ts.pagepool.blocks_leased() == 0
+
+
 # ---- the arena --------------------------------------------------------------
 
 def test_arena_is_one_persistent_view(store):

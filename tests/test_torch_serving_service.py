@@ -14,7 +14,13 @@ the JAX package.
     sees ``{"done": true, "error": 1011}`` while a fast reader beside it
     streams on) and ``test_rpc_generate_streams_tokens``;
   * ``"speculative": false`` reaches the engine; ``Score``/``ScoreT``
-    answer ENOMETHOD without a batcher;
+    answer ENOMETHOD without a batcher (``ScoreT`` on the tensorframe
+    wire);
+  * Score and ScoreT through a batcher over a runner, on a port server
+    and on a JAX-package server over the same parameters: the same ids,
+    equal to the JAX package's dense forward, with each package's
+    ``ScoreClient`` against each server;
+  * Generate through an ``EngineSupervisor`` streams the oracle;
   * shutdown (server, then engine, then store) while a stream is open:
     nothing hangs, no sequence stays live, the pool is at its baseline.
 """
@@ -23,16 +29,21 @@ import json
 import threading
 import time
 
+import numpy as np
 import pytest
 
 import brpc_tpu as ref
 from brpc_tpu.models import runner as R
 from brpc_tpu.serving import DecodeEngine as RefEngine
+from brpc_tpu.serving import DynamicBatcher as RefBatcher
+from brpc_tpu.serving.service import ScoreClient as RefScoreClient
 from brpc_tpu.serving.service import register_serving as ref_register
 import brpc_tpu_torch.rpc as rpc
 from brpc_tpu_torch import errors
 from brpc_tpu_torch.models import runner as T
-from brpc_tpu_torch.serving import DecodeEngine, register_serving
+from brpc_tpu_torch.serving import (DecodeEngine, DynamicBatcher,
+                                    EngineSupervisor, ScoreClient,
+                                    register_serving)
 from brpc_tpu_torch.serving.speculative import NGramProposer
 
 from testutil import wait_until
@@ -254,7 +265,9 @@ def test_score_without_batcher_and_generate_without_engine():
         for client in (rpc, ref):
             ch = client.Channel(f"127.0.0.1:{srv.port}", timeout_ms=5000)
             for meth, body, ser in (("Score", {"x": [1.0]}, "json"),
-                                    ("ScoreT", b"", "raw"),
+                                    ("ScoreT",
+                                     {"x": np.ones(1, np.float32)},
+                                     "tensorframe"),
                                     ("Generate", {"prompt": [1]}, "json")):
                 with pytest.raises(Exception) as ei:
                     ch.call_sync("Serving", meth, body, serializer=ser)
@@ -282,3 +295,95 @@ def test_shutdown_with_an_open_stream():
     assert wait_until(lambda: srv.engine.stats()["slots"] == [None, None],
                       30)
     assert col.tokens[:3] == port_oracle((1, 2, 3), 3)
+
+
+# ---- Score / ScoreT through the batcher, both packages ----------------------
+
+SCORE_ROWS = ([5, 17, 42, 9], [88, 12, 54, 61, 7, 30, 2])
+
+
+def test_score_and_score_t_equal_across_packages_and_clients():
+    """A batcher over each package's runner (the same parameters) behind
+    each package's server: Score (json) and ScoreT (tensorframe, through
+    ScoreClient) answer the same float32 ids from both servers, for both
+    packages' clients, equal to the JAX package's dense forward (its
+    runner's ``score`` through its own batcher)."""
+    # one batch and one length bucket: the JAX side compiles one shape
+    kw = dict(max_batch_size=4, max_delay_us=1000, batch_buckets=(4,),
+              length_buckets=(8,), dtype=np.int32)
+    pbatch = DynamicBatcher(T.TransformerRunner(_tparams(), TCFG,
+                                                device=CPU),
+                            name="t_torch_svc_score", **kw)
+    rbatch = RefBatcher(R.TransformerRunner(JPARAMS, JCFG),
+                        name="t_torch_svc_score_ref", **kw)
+    psrv = rpc.Server()
+    register_serving(psrv, batcher=pbatch)
+    psrv.start("127.0.0.1", 0)
+    rsrv = ref.Server(has_builtin_services=False)
+    ref_register(rsrv, batcher=rbatch, http_generate_path=None)
+    rsrv.start("127.0.0.1", 0)
+    try:
+        want = [rbatch.submit_wait(np.asarray(r, np.int32), timeout_s=120)
+                for r in SCORE_ROWS]
+        for port, rows in ((psrv.port, (0, 1)), (rsrv.port, (1,))):
+            for mod, client_cls in ((rpc, ScoreClient),
+                                    (ref, RefScoreClient)):
+                ch = mod.Channel(f"127.0.0.1:{port}", timeout_ms=60_000)
+                cli = client_cls(ch)
+                for i in rows:
+                    row, w = SCORE_ROWS[i], want[i]
+                    y = cli.score(np.asarray(row, np.float32))
+                    assert y.dtype == np.float32
+                    np.testing.assert_array_equal(y, w)
+                assert cli.wire_mode == "frame"
+            js = ch.call_sync("Serving", "Score",
+                              {"x": [float(t) for t in SCORE_ROWS[1]]},
+                              serializer="json")
+            np.testing.assert_array_equal(np.asarray(js["y"], np.float32),
+                                          want[1])
+        with pytest.raises(errors.RpcError) as ei:      # rank 2 refused
+            rpc.Channel(f"127.0.0.1:{psrv.port}", timeout_ms=10_000
+                        ).call_sync("Serving", "ScoreT",
+                                    {"x": np.ones((2, 2), np.float32)},
+                                    serializer="tensorframe")
+        assert ei.value.code == errors.EREQUEST
+    finally:
+        for srv in (psrv, rsrv):
+            srv.stop()
+            srv.join()
+        pbatch.close()
+        rbatch.close()
+
+
+def test_generate_through_a_supervisor_streams_the_oracle():
+    """``register_serving(engine=EngineSupervisor(...))``: Generate over
+    the port's server streams the JAX package's tokens, cold and warm,
+    and the supervisor finishes every request."""
+    store = T.make_store_for(TCFG, page_tokens=4, max_blocks=16,
+                             device=CPU, name="t_torch_svc_sup")
+
+    def factory():
+        runner = T.TransformerRunner(_tparams(), TCFG, store=store,
+                                     device=CPU)
+        return DecodeEngine(runner=runner, store=store, num_slots=2,
+                            max_pages_per_slot=24, prefill_buckets=(8, 16),
+                            device=CPU, name="t_torch_svc_sup")
+
+    sup = EngineSupervisor(factory, store=store, name="t_torch_svc_sup")
+    srv = rpc.Server()
+    register_serving(srv, engine=sup)
+    srv.start("127.0.0.1", 0)
+    try:
+        prompt = list(PROMPTS[1])
+        cold, hit0 = _generate(rpc, srv.port, prompt, NEW)
+        assert cold == jax_oracle(tuple(prompt), NEW) and hit0 == 0
+        warm, hit1 = _generate(ref, srv.port, prompt, NEW)
+        assert warm == cold and hit1 > 0
+        assert sup.join_idle(10)
+        assert sup.stats()["restarts"] == 0
+    finally:
+        srv.stop()
+        srv.join()
+        sup.close()
+        store.clear()
+    assert store.pagepool.blocks_leased() == 0
