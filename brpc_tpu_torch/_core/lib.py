@@ -2,9 +2,12 @@
 
 A copy of the part of ``brpc_tpu/_core/lib.py`` the port uses: the
 socket, framing, timer and IOBuf entry points of the TRPC transport,
-the latency recorder of ``bvar`` and the batcher's ``brpc_batch_pad``
-in ``libbrpc_core_torch.so``, and the ``_fastrpc`` extension linked
-against it, both built by :mod:`.build` at the first :func:`load`.
+the latency recorder of ``bvar``, the serving hot path's native emit
+rings (:class:`TokenRing`), batch pad and page-table fill in
+``libbrpc_core_torch.so``, and the ``_fastrpc`` extension linked
+against it (its ``batch_pad``, ``page_table_fill``, ``tokring_push``
+and span queue ``spanq_*``), both built by :mod:`.build` at the first
+:func:`load`.
 The port never opens the JAX package's ``libbrpc_core.so``; the two cores may
 live in one process, each with its own executor, dispatchers, timer
 thread and socket pool.
@@ -85,11 +88,37 @@ _SIGS = {
                                   ctypes.POINTER(ctypes.c_int64)]),
     "brpc_latency_percentile": (ctypes.c_double, [ctypes.c_void_p,
                                                   ctypes.c_double]),
-    # the batcher's formation pad (src/cc/serving_hotpath.cc)
+    # the serving hot path (src/cc/serving_hotpath.cc): bounded emit
+    # token rings with batch push and pop, the batcher's formation pad,
+    # the engine's page-table fill; each ctypes call releases the
+    # interpreter lock
+    "brpc_tokring_new": (ctypes.c_void_p, [ctypes.c_int]),
+    "brpc_tokring_free": (None, [ctypes.c_void_p]),
+    "brpc_tokring_live": (ctypes.c_int64, []),
+    "brpc_tokring_push": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int32]),
+    "brpc_tokring_push_many": (ctypes.c_int,
+                               [ctypes.POINTER(ctypes.c_void_p),
+                                ctypes.POINTER(ctypes.c_int32),
+                                ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_uint8)]),
+    "brpc_tokring_push_terminal": (ctypes.c_int, [ctypes.c_void_p,
+                                                  ctypes.c_int32]),
+    "brpc_tokring_pop_many": (ctypes.c_int,
+                              [ctypes.c_void_p,
+                               ctypes.POINTER(ctypes.c_int32),
+                               ctypes.c_int, ctypes.c_int64,
+                               ctypes.POINTER(ctypes.c_int),
+                               ctypes.POINTER(ctypes.c_int32)]),
+    "brpc_tokring_size": (ctypes.c_int64, [ctypes.c_void_p]),
     "brpc_batch_pad": (None, [ctypes.POINTER(ctypes.c_void_p),
                               ctypes.POINTER(ctypes.c_int64),
                               ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_int64, ctypes.c_int64]),
+    "brpc_page_table_fill": (None, [ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.POINTER(ctypes.c_int64),
+                                    ctypes.POINTER(ctypes.c_int32),
+                                    ctypes.c_int, ctypes.c_void_p,
+                                    ctypes.c_int, ctypes.c_int]),
 }
 
 _mu = threading.Lock()
@@ -142,3 +171,68 @@ class IOBuf:
 
     def to_bytes(self) -> bytes:
         return fastrpc.iobuf_bytes(self.handle, 0, -1)
+
+
+class TokenRing:
+    """One native bounded emit ring (``src/cc/serving_hotpath.cc``).
+    The interpreter-lock choices are the reference's: :meth:`push`
+    goes through ``_fastrpc.tokring_push``, which HOLDS the lock (the
+    ring mutex is held for nanoseconds, so a release and reacquire per
+    token would cost more than the push); the engine's one
+    ``brpc_tokring_push_many`` per step and :meth:`pop_many` go through
+    ctypes, which releases it.  The terminal's Python error OBJECT
+    rides a wrapper slot set exactly once, before the native marker, so
+    the emitter that sees the native terminal finds the winner's
+    object in place."""
+
+    __slots__ = ("handle", "cap", "_terminal_obj", "_terminal_set",
+                 "_tmu")
+
+    def __init__(self, cap: int):
+        load()
+        self.cap = int(cap)
+        self.handle = core.brpc_tokring_new(self.cap)
+        self._terminal_obj = None
+        self._terminal_set = False
+        # the terminal is once per request: a small Python lock keeps
+        # the error object and the native marker exactly-once together;
+        # the per-token path never takes it
+        self._tmu = threading.Lock()
+
+    def __del__(self):
+        h = getattr(self, "handle", None)
+        if h:
+            core.brpc_tokring_free(h)
+            self.handle = None
+
+    def push(self, tok: int) -> bool:
+        return bool(fastrpc.tokring_push(self.handle, tok))
+
+    def push_terminal(self, err) -> None:
+        with self._tmu:
+            if self._terminal_set:
+                return
+            # the object BEFORE the native marker
+            self._terminal_obj = err
+            self._terminal_set = True
+            core.brpc_tokring_push_terminal(
+                self.handle, getattr(err, "code", 0) or 0)
+
+    def pop_many(self, out, timeout_s: float):
+        """Drain into the caller's ctypes int32 array `out`; returns
+        ``(count, terminal_seen, err_obj)``."""
+        term = ctypes.c_int(0)
+        errc = ctypes.c_int32(0)
+        n = core.brpc_tokring_pop_many(
+            self.handle, out, len(out), int(timeout_s * 1e6),
+            ctypes.byref(term), ctypes.byref(errc))
+        return n, bool(term.value), self._terminal_obj
+
+    def __len__(self) -> int:
+        return core.brpc_tokring_size(self.handle)
+
+
+def tokring_live() -> int:
+    """Native emit rings alive in this process, on the port's core."""
+    load()
+    return core.brpc_tokring_live()

@@ -1,7 +1,7 @@
 """The bvar registry (a copy of ``brpc_tpu/bvar/variable.py``'s
-``Variable``, ``exposed_variables`` and ``find_exposed``): every
-exposed variable by name, so a component can hide exactly the names it
-exposed when it closes."""
+``Variable``, ``exposed_variables``, ``find_exposed`` and
+``dump_exposed``): every exposed variable by name, so a component can
+hide exactly the names it exposed when it closes."""
 from __future__ import annotations
 
 import fnmatch
@@ -54,3 +54,15 @@ def exposed_variables(pattern: str = "*") -> dict:
 def find_exposed(name: str) -> Optional[Variable]:
     with _registry_lock:
         return _registry.get(name)
+
+
+def dump_exposed(pattern: str = "*") -> dict:
+    """``{name: value}`` of the exposed variables matching the
+    wildcard."""
+    out = {}
+    for name, var in exposed_variables(pattern).items():
+        try:
+            out[name] = var.get_value()
+        except Exception as e:  # a broken callback must not break a dump
+            out[name] = f"<error: {e}>"
+    return out

@@ -24,21 +24,22 @@ reference packs ``block_class // page_bytes``; the two agree whenever
 that is a power of two, as for every configuration the repo runs).
 
 WRITES are in place: ``index_put_`` / ``copy_`` into the class tensor
-on the caller's current stream.  The reference splices functionally
-and serialises read-modify-write under ``_io_mu``; here there is no
-read-modify-write, and in this slice the decode engine's thread is the
-only writer and reader of the arena (admission, prefill, the step's
-attention and its K/V write all run on it, in stream order), so no
-lock orders a kernel's read against a write.  A second thread that
-writes pages while the engine runs would need one.
+on the caller's current stream, each under the named lock
+``kvcache.pool_io`` (the reference's ``_io_mu``), so writers on two
+threads never interleave their launches.  The decode engine's thread
+is the arena's one reader (admission, prefill, the step's attention
+and its K/V write all run on it, in stream order), so no lock orders a
+kernel's read against a write.  The page table's lock is the named
+``kvcache.pool``.
 """
 from __future__ import annotations
 
 import itertools
-import threading
 
 import numpy as np
 import torch
+
+from ..butil.lockprof import InstrumentedLock
 
 from ..ici.block_pool import (BLOCK_CLASSES, BLOCKS_PER_CLASS,
                                            get_block_pool)
@@ -96,7 +97,8 @@ class PagePool:
         self.page_stride = self.block_class // self.pages_per_block
         self.max_blocks = int(max_blocks)
         self.name = name
-        self._mu = threading.Lock()
+        self._mu = InstrumentedLock("kvcache.pool")
+        self._io_mu = InstrumentedLock("kvcache.pool_io")
         self._blocks: dict[int, tuple] = {}     # block slot -> (block, pages)
         self._free: list[KVPage] = []
         self._pid_flat: dict[int, int] = {}     # pid -> flat arena index
@@ -224,8 +226,10 @@ class PagePool:
         ix = torch.tensor(idx, dtype=torch.int64).t().to(self.device)
         slots = self.arena().view(-1, self.page_tokens,
                                   self.kv_bytes_per_token)
-        slots.index_put_((ix[0], ix[1]), torch.cat(payload))
-        self.batch_splices += 1
+        rows = torch.cat(payload)
+        with self._io_mu:
+            slots.index_put_((ix[0], ix[1]), rows)
+            self.batch_splices += 1
 
     def page_slice(self, page: KVPage) -> torch.Tensor:
         """A device copy of the page's bytes (uint8[page_bytes]): the
@@ -244,18 +248,28 @@ class PagePool:
         if t.dtype != torch.uint8 or t.shape[0] != self.page_bytes:
             raise ValueError(f"raw page payload is {t.shape[0]} x {t.dtype},"
                              f" page_bytes={self.page_bytes} uint8")
-        self.arena()[self._flat(page)].copy_(t)
+        dst = self.arena()[self._flat(page)]
+        with self._io_mu:
+            dst.copy_(t)
 
     def copy_page(self, dst: KVPage, src: KVPage) -> None:
         """Device-to-device page copy: the copy half of copy-on-write."""
         arena = self.arena()
-        arena[self._flat(dst)].copy_(arena[self._flat(src)])
+        d, s = arena[self._flat(dst)], arena[self._flat(src)]
+        with self._io_mu:
+            d.copy_(s)
 
     # ---- introspection / invariants ----
 
     def blocks_leased(self) -> int:
         with self._mu:
             return len(self._blocks)
+
+    def pages_in_use(self) -> int:
+        """Pages with at least one ref (the occupancy bvar)."""
+        with self._mu:
+            return sum(1 for _, pages in self._blocks.values()
+                       for p in pages if p.refs > 0)
 
     def assert_consistent(self) -> None:
         """Free-listed pages have no refs, every page belongs to a live

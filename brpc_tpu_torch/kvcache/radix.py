@@ -1,7 +1,6 @@
 """Radix/prefix tree mapping token prefixes to cached KV pages.
 
-A copy of ``brpc_tpu/kvcache/radix.py`` (without its fault sites and
-rpcz annotations).  Keyed at PAGE granularity: every edge is one page's
+A copy of ``brpc_tpu/kvcache/radix.py`` (without its fault site).  Keyed at PAGE granularity: every edge is one page's
 worth of tokens, so a node is one cached page and a longest-prefix
 match returns whole shared pages.
 
@@ -9,13 +8,15 @@ Refcount contract with the :class:`~brpc_tpu_torch.kvcache.pages.PagePool`:
 the tree holds ONE ref on every page it retains, so an evictable page
 has ``refs == 1`` and eviction never frees a page a live or forked
 sequence still references.  Eviction is LRU by leaf, ordered by a
-logical clock bumped on every match, so seeded runs replay.
+logical clock bumped on every match, so seeded runs replay.  The tree
+lock is the named ``kvcache.radix``.
 """
 from __future__ import annotations
 
 import itertools
-import threading
 from typing import Optional, Sequence
+
+from ..butil.lockprof import InstrumentedLock
 
 
 class _Node:
@@ -36,7 +37,7 @@ class RadixTree:
         self.pagepool = pagepool
         self.page_tokens = pagepool.page_tokens
         self.name = name
-        self._mu = threading.Lock()
+        self._mu = InstrumentedLock("kvcache.radix")
         self._root = _Node((), None, None)
         self._clock = itertools.count(1)
         self._nodes = 0
@@ -88,10 +89,12 @@ class RadixTree:
                 node = child
         return retained
 
-    def evict(self, min_pages: int) -> int:
+    def evict(self, min_pages: int, span=None) -> int:
         """Free at least `min_pages` cached pages, LRU leaves first; only
         tree-only pages (refs == 1) are candidates.  Returns pages freed
-        (fewer when the tree runs out of evictable leaves)."""
+        (fewer when the tree runs out of evictable leaves).  ``span``
+        (the rpcz span of whoever forced the eviction) gets the freed
+        page ids."""
         freed = 0
         while freed < min_pages:
             with self._mu:
@@ -112,6 +115,11 @@ class RadixTree:
                 pages = [v.page for v in victims]
             if not pages:
                 break
+            if span is not None and getattr(span, "trace_id", 0):
+                pids = [p.pid for p in pages[:8]]
+                span.annotate(
+                    f"kv evict: freed {len(pages)} LRU cached pages "
+                    f"(pids {pids}{'...' if len(pages) > 8 else ''})")
             # unref outside _mu: it may release whole blocks
             for page in pages:
                 self.pagepool.unref(page)

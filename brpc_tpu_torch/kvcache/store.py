@@ -28,18 +28,38 @@ reference ships host numpy rows, this store writes device rows in place.
 When the page pool is exhausted the store evicts LRU radix leaves and
 retries, so pressure degrades the hit rate, never correctness.
 
-Counters are plain integers updated under the store lock.
+Telemetry: the counters are ``kvcache_<name>_*`` bvars (an attribute
+such as ``store.hit_tokens`` reads its value), the store lock is the
+named ``kvcache.store`` (an RLock inside), and a sequence's owning
+rpcz span (``admit(..., span=)``, the engine's decode span) gets the
+KV events: prefix hit or miss, copy-on-write, page-alloc retries under
+pressure and the evictions they forced, detach.
 """
 from __future__ import annotations
 
 import itertools
+import re
 import threading
 from typing import Sequence
 
+from .. import rpcz
+from ..butil.lockprof import InstrumentedLock
+from ..bvar import Adder, PassiveStatus, exposed_variables, find_exposed
 from .pages import KVPage, PagePool
 from .radix import RadixTree
 
 _seq_ids = itertools.count(1)
+
+
+class _Count:
+    """A counter attribute backed by a bvar ``Adder`` in ``_<name>``:
+    reading it gives the Adder's value."""
+
+    def __set_name__(self, owner, name):
+        self.attr = "_" + name
+
+    def __get__(self, obj, cls=None):
+        return self if obj is None else getattr(obj, self.attr).get_value()
 
 
 class RecoveryPin:
@@ -71,7 +91,7 @@ class KVSeq:
     ``kv_filled`` is how many leading positions hold real K/V."""
 
     __slots__ = ("seq_id", "tokens", "pages", "prefill_from", "retired",
-                 "kv_filled")
+                 "kv_filled", "span")
 
     def __init__(self):
         self.seq_id = next(_seq_ids)
@@ -80,6 +100,8 @@ class KVSeq:
         self.prefill_from = 0
         self.retired = False
         self.kv_filled = 0
+        # the owning generation's rpcz span: KV events annotate it
+        self.span = rpcz.NULL_SPAN
 
     @property
     def prefix_hit_tokens(self) -> int:
@@ -93,6 +115,17 @@ class KVCacheStore:
     """Paged KV cache with radix prefix reuse (see the module
     docstring).  ``device`` defaults to ``cuda``."""
 
+    hit_tokens = _Count()
+    prompt_tokens = _Count()
+    evictions = _Count()
+    cow = _Count()
+    admitted = _Count()
+    retired = _Count()
+    forks = _Count()
+    speculated = _Count()        # draft tokens appended
+    rolled_back = _Count()       # draft pages released
+    detached = _Count()          # sequences handed over by detach()
+
     def __init__(self, pool=None, device=None, *, page_bytes: int = 1024,
                  page_tokens: int = 16, max_blocks: int = 8,
                  name: str = "kv"):
@@ -103,25 +136,42 @@ class KVCacheStore:
         self.radix = RadixTree(self.pagepool, name=name)
         self.page_tokens = self.pagepool.page_tokens
         self.name = name
-        self._mu = threading.RLock()
+        self._mu = InstrumentedLock("kvcache.store", threading.RLock())
         self._live = 0
-        self.hit_tokens = 0
-        self.prompt_tokens = 0
-        self.evictions = 0
-        self.cow = 0
-        self.admitted = 0
-        self.retired = 0
-        self.forks = 0
-        self.speculated = 0         # draft tokens appended
-        self.rolled_back = 0        # draft pages released
-        self.detached = 0           # sequences handed over by detach()
+        safe = re.sub(r"\W", "_", name)
+        # the EXACT names exposed here, so close() hides only this
+        # store's
+        pre = set(exposed_variables(f"kvcache_{safe}*"))
+        self._hit_tokens = Adder(f"kvcache_{safe}_hit_tokens")
+        self._prompt_tokens = Adder(f"kvcache_{safe}_prompt_tokens")
+        self._evictions = Adder(f"kvcache_{safe}_evictions")
+        self._cow = Adder(f"kvcache_{safe}_cow_forks")
+        self._admitted = Adder(f"kvcache_{safe}_admitted")
+        self._retired = Adder(f"kvcache_{safe}_retired")
+        self._forks = Adder(f"kvcache_{safe}_forks")
+        self._speculated = Adder(f"kvcache_{safe}_speculated_tokens")
+        self._rolled_back = Adder(f"kvcache_{safe}_rolled_back_pages")
+        self._detached = Adder(f"kvcache_{safe}_detached")
+        # KV migration (its page import) is not ported: the counter
+        # stays 0 and keeps the store's variable names the reference's
+        Adder(f"kvcache_{safe}_imported_pages")
+        PassiveStatus(self.hit_rate).expose(f"kvcache_{safe}_hit_rate")
+        PassiveStatus(self.pagepool.pages_in_use).expose(
+            f"kvcache_{safe}_pages_in_use")
+        PassiveStatus(self.radix.node_count).expose(
+            f"kvcache_{safe}_radix_nodes")
+        self._bvar_names = [n for n in exposed_variables(f"kvcache_{safe}*")
+                            if n not in pre]
+        from . import _register_store
+        _register_store(self)
 
     # ---- lifecycle ----
 
-    def admit(self, prompt: Sequence[int]) -> KVSeq:
+    def admit(self, prompt: Sequence[int], *, span=None) -> KVSeq:
         """Start a sequence for `prompt`: its longest cached prefix
         (capped at len(prompt)-1, so one position always computes) is
-        shared, fresh pages cover the suffix."""
+        shared, fresh pages cover the suffix.  ``span`` (an rpcz span)
+        becomes the sequence's owning span."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -129,6 +179,8 @@ class KVCacheStore:
             max_chunks = (len(prompt) - 1) // self.page_tokens
             shared = self.radix.match(prompt, max_chunks=max_chunks)
             seq = KVSeq()
+            if span is not None:
+                seq.span = span
             for p in shared:
                 self.pagepool.ref(p)
                 seq.pages.append(p)
@@ -136,6 +188,12 @@ class KVCacheStore:
             seq.tokens = prompt[:hit]
             seq.prefill_from = hit
             seq.kv_filled = hit
+            if seq.span is not rpcz.NULL_SPAN:
+                seq.span.annotate(
+                    f"kv admit: prefix_hit={hit}/{len(prompt)} tokens "
+                    f"({len(shared)} shared pages)" if hit else
+                    f"kv admit: prefix miss ({len(prompt)} tokens "
+                    f"uncached)")
             try:
                 self._append_run(seq, prompt[hit:])
             except BaseException:
@@ -143,9 +201,9 @@ class KVCacheStore:
                 for p in seq.pages:
                     self.pagepool.unref(p)
                 raise
-            self.hit_tokens += hit
-            self.prompt_tokens += len(prompt)
-            self.admitted += 1
+            self._hit_tokens.add(hit)
+            self._prompt_tokens.add(len(prompt))
+            self._admitted.add(1)
             self._live += 1
         return seq
 
@@ -195,7 +253,7 @@ class KVCacheStore:
                         slot = p % self.page_tokens
                         page = seq.pages[pi]
                         if page.refs > 1:
-                            page = self._cow(seq, pi)
+                            page = self._copy_on_write(seq, pi, "KV write")
                         k = min(self.page_tokens - slot, n - idx)
                         runs.append((page, slot, rows[idx:idx + k]))
                         idx += k
@@ -229,7 +287,7 @@ class KVCacheStore:
             for p in seq.pages:
                 self.pagepool.ref(p)
                 child.pages.append(p)
-            self.forks += 1
+            self._forks.add(1)
             self._live += 1
             return child
 
@@ -247,7 +305,7 @@ class KVCacheStore:
             if seq.retired:
                 raise RuntimeError(f"speculate on retired seq {seq.seq_id}")
             self._append_run(seq, tokens)
-            self.speculated += len(tokens)
+            self._speculated.add(len(tokens))
 
     def rollback(self, seq: KVSeq, keep_tokens: int) -> int:
         """Reject a draft tail: truncate `seq` to its first
@@ -270,7 +328,7 @@ class KVCacheStore:
             dropped, seq.pages = seq.pages[need:], seq.pages[:need]
             for p in dropped:
                 self.pagepool.unref(p)
-            self.rolled_back += len(dropped)
+            self._rolled_back.add(len(dropped))
             return len(dropped)
 
     def commit_draft(self, seq: KVSeq, upto: int) -> None:
@@ -304,7 +362,7 @@ class KVCacheStore:
             for p in seq.pages:
                 self.pagepool.unref(p)
             seq.pages = []
-            self.retired += 1
+            self._retired.add(1)
             self._live -= 1
 
     def detach(self, seq: KVSeq) -> RecoveryPin:
@@ -334,9 +392,14 @@ class KVCacheStore:
             for p in seq.pages:
                 self.pagepool.unref(p)
             seq.pages = []
-            self.detached += 1
-            self.retired += 1
+            self._detached.add(1)
+            self._retired.add(1)
             self._live -= 1
+            if seq.span is not rpcz.NULL_SPAN:
+                seq.span.annotate(
+                    f"kv detach: {nfull} full pages committed to the "
+                    f"radix tree, {len(pinned)} pinned for recovery "
+                    f"({len(pinned) * self.page_tokens} tokens)")
             return RecoveryPin(self, pinned, len(pinned) * self.page_tokens)
 
     # ---- internals (caller holds _mu) ----
@@ -347,10 +410,17 @@ class KVCacheStore:
         K/V until it is stepped)."""
         return min(len(seq.tokens), seq.kv_filled) // self.page_tokens
 
-    def _cow(self, seq: KVSeq, pi: int) -> KVPage:
-        """Replace seq's shared page ``pi`` by a private copy."""
+    def _copy_on_write(self, seq: KVSeq, pi: int, before: str) -> KVPage:
+        """Replace seq's shared page ``pi`` by a private copy, ahead of
+        a `before` into it ("write": an append's tail page; "KV write":
+        a write_kv target)."""
         shared = seq.pages[pi]
-        fresh = self._alloc_page()
+        if seq.span is not rpcz.NULL_SPAN:
+            tail = "tail " if before == "write" else ""
+            seq.span.annotate(f"kv cow: {tail}page {shared.pid} shared "
+                              f"(refs={shared.refs}), copied before "
+                              f"{before}")
+        fresh = self._alloc_page(seq.span)
         try:
             self.pagepool.copy_page(fresh, shared)
         except BaseException:
@@ -358,7 +428,7 @@ class KVCacheStore:
             raise
         seq.pages[pi] = fresh
         self.pagepool.unref(shared)
-        self.cow += 1
+        self._cow.add(1)
         return fresh
 
     def _append_run(self, seq: KVSeq, tokens: Sequence[int]) -> None:
@@ -369,22 +439,28 @@ class KVCacheStore:
         while idx < n:
             slot = len(seq.tokens) % self.page_tokens
             if slot == 0:
-                seq.pages.append(self._alloc_page())
+                seq.pages.append(self._alloc_page(seq.span))
             elif seq.pages[-1].refs > 1:
-                self._cow(seq, len(seq.pages) - 1)
+                self._copy_on_write(seq, len(seq.pages) - 1, "write")
             k = min(self.page_tokens - slot, n - idx)
             seq.tokens.extend(int(t) for t in tokens[idx:idx + k])
             idx += k
 
-    def _alloc_page(self) -> KVPage:
+    def _alloc_page(self, span=None) -> KVPage:
         """Allocate a page, evicting one block's worth of LRU radix
-        leaves and retrying while eviction frees anything."""
+        leaves and retrying while eviction frees anything.  ``span``
+        (the allocating sequence's) gets one annotation per retry."""
         while True:
             try:
                 return self.pagepool.alloc_page()
             except MemoryError:
-                freed = self.radix.evict(self.pagepool.pages_per_block)
-                self.evictions += freed
+                freed = self.radix.evict(self.pagepool.pages_per_block,
+                                         span=span)
+                self._evictions.add(freed)
+                if span is not None and span is not rpcz.NULL_SPAN:
+                    span.annotate(
+                        f"kv page_alloc retry: pool exhausted, evicted "
+                        f"{freed} LRU cached pages")
                 if freed == 0:
                     raise
 
@@ -426,7 +502,7 @@ class KVCacheStore:
         """Evict up to `n` LRU cached pages; returns pages freed."""
         with self._mu:
             freed = self.radix.evict(n)
-            self.evictions += freed
+            self._evictions.add(freed)
         return freed
 
     def clear(self) -> int:
@@ -434,8 +510,17 @@ class KVCacheStore:
         retired this returns the block pool to its baseline."""
         with self._mu:
             freed = self.radix.evict_all()
-            self.evictions += freed
+            self._evictions.add(freed)
         return freed
+
+    def close(self) -> None:
+        """Drop the cache and hide this store's variables (their bound
+        methods would keep it alive in the registry)."""
+        self.clear()
+        for n in self._bvar_names:
+            v = find_exposed(n)
+            if v is not None:
+                v.hide()
 
     def hit_rate(self) -> float:
         seen = self.prompt_tokens

@@ -7,7 +7,9 @@ plain ``max_retry`` on connection errors, and streams riding a call
 state machine: a (correlation_id, attempt) version per attempt, so a
 stale attempt, a late response or a racing socket failure can never
 complete a call twice.  One multiplexed connection per endpoint
-(``SocketMap``) carries every call.  Left out (ROADMAP): combo
+(``SocketMap``) carries every call.  A call made under a current
+rpcz span carries its trace on the meta (the callee's server span
+joins it).  Left out (ROADMAP): combo
 channels, naming services, load balancing, the circuit breaker, health
 checks, backup requests, pooled and short connections, TLS and the
 tensor rail.
@@ -20,7 +22,7 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from .. import errors
+from .. import errors, rpcz
 from ..butil.endpoint import EndPoint, str2endpoint
 from . import meta as M
 from .controller import Controller, OneShotEvent
@@ -349,6 +351,13 @@ class Channel:
         if stream is not None:
             meta.stream_id = stream.stream_id
             meta.user_fields[M.F_SBUF] = str(stream.max_buf_size)
+        # the current trace rides the meta, the root's sampling decision
+        # in a flag bit, so the callee keeps or drops the whole trace
+        tid, psid, smp = rpcz.current_trace_ctx()
+        meta.trace_id = cntl.trace_id = tid
+        meta.span_id = cntl.span_id = psid
+        if tid and smp:
+            meta.flags |= M.FLAG_TRACE_SAMPLED
         st = _CallState(cntl, self, meta, body, done)
         mgr = CallManager.instance()
         mgr.register(st)
@@ -402,8 +411,9 @@ class Channel:
         if stream is not None and not stream.connected:
             stream.bind(sid)
         t = Transport.instance()
-        if (not meta.stream_id and not meta.tensor_header
-                and not meta.user_fields and not meta.attachment_size):
+        if (not meta.trace_id and not meta.span_id and not meta.stream_id
+                and not meta.tensor_header and not meta.user_fields
+                and not meta.attachment_size):
             # a plain request: meta packed and framed natively
             rc = t.send_request(sid, meta.correlation_id, attempt,
                                 meta.service, meta.method, meta.timeout_ms,

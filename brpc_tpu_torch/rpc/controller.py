@@ -80,6 +80,10 @@ class Controller:
 
         # ---- call bookkeeping ----
         self.correlation_id: int = 0
+        # the rpcz trace this call belongs to (client: stamped from the
+        # current span; server: the server span's)
+        self.trace_id: int = 0
+        self.span_id: int = 0
         self.current_attempt: int = 0
         self.retried_count: int = 0
         self.latency_us: int = 0

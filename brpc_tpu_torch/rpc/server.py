@@ -6,10 +6,16 @@ requests pre-parsed through ``_fastrpc``) -> find the method -> decode
 and decompress -> the handler -> encode, compress, write the response
 -> :class:`MethodStatus` accounting.  Kept: ``add_service``,
 ``start``/``stop``/``join``/``port``, deferred responses
-(``cntl.defer()``) and accepted streams.  Left out (ROADMAP): the
-other protocols on the port (HTTP gets a 404), builtin services and
-the console, auth, interceptors, limiters, tag pools, ``rpc_dump``,
-rpcz spans, bvar variables, the hotspot sampler and the rail.
+(``cntl.defer()``), accepted streams, and one rpcz server span per
+call: it joins the wire's trace (``trace_id``/``span_id`` of the
+request meta) and inherits its sampling decision
+(``FLAG_TRACE_SAMPLED``), and is the current span while the handler
+runs, so the serving layers' spans nest under it.  ``start`` exposes
+the process default variables (cpu, rss, fds).  Left out (ROADMAP):
+the other protocols on the port (HTTP gets a 404), builtin services
+and the console, auth, interceptors, limiters, tag pools,
+``rpc_dump``, per-method bvar variables, the hotspot sampler and the
+rail.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
-from .. import errors
+from .. import errors, rpcz
+from ..bvar.default_variables import expose_default_variables
 from . import meta as M
 from .controller import Controller
 from .serialization import compress, decompress
@@ -108,6 +115,7 @@ class Server:
         if self._started:
             raise RuntimeError("already started")
         self._stopping = False
+        expose_default_variables()
         t = Transport.instance()
         self._listen_sid, self._port = t.listen_rpc(
             addr, port, self._on_message, self._on_conn_failed,
@@ -248,10 +256,21 @@ class Server:
         status = self._method_status[key]
         status.on_requested()
         self._inflight_inc()
+        span = rpcz.new_span("server", meta.service, meta.method,
+                             trace_id=meta.trace_id,
+                             parent_span_id=meta.span_id,
+                             # a joined trace inherits the root's
+                             # decision from the wire; a fresh trace
+                             # decides here
+                             sampled=bool(meta.flags
+                                          & M.FLAG_TRACE_SAMPLED)
+                             if meta.trace_id else None)
         cntl = Controller()
         cntl.is_server_side = True
         cntl.request_meta = meta
         cntl.peer_sid = sid
+        cntl.trace_id = span.trace_id
+        cntl.span_id = span.span_id
         # ---- decode ----
         try:
             # fast-path bodies are IOBuf-backed memoryviews (slicing
@@ -266,17 +285,22 @@ class Server:
                 payload = decompress(payload, meta.compress_type)
             request = spec.request_serializer.decode(payload,
                                                      meta.tensor_header)
+            span.request_size = len(raw)
         except Exception as e:
             if isinstance(e, ValueError):
                 # a malformed payload is bad input, not a server fault
                 e = errors.RpcError(errors.EREQUEST,
                                     f"cannot decode request: {e}")
-            self._complete(sid, meta, cntl, spec, status, start, None, exc=e)
+            self._complete(sid, meta, span, cntl, spec, status, start, None,
+                           exc=e)
             return
         # ---- handler ----
         # the done closure is built only when the handler defers
         cntl._done_factory = lambda: self._make_server_done(
-            sid, meta, cntl, spec, status, start)
+            sid, meta, span, cntl, spec, status, start)
+        traced = span is not rpcz.NULL_SPAN
+        if traced:      # with rpcz off, no context-variable writes
+            rpcz.set_current_span(span)
         try:
             response = spec.fn(cntl, request)
         except Exception as e:
@@ -285,13 +309,17 @@ class Server:
                 # race it
                 _log.exception("deferred handler raised")
                 return
-            self._complete(sid, meta, cntl, spec, status, start, None, exc=e)
+            self._complete(sid, meta, span, cntl, spec, status, start, None,
+                           exc=e)
             return
+        finally:
+            if traced:
+                rpcz.set_current_span(None)
         if cntl._deferred:
             return
-        self._complete(sid, meta, cntl, spec, status, start, response)
+        self._complete(sid, meta, span, cntl, spec, status, start, response)
 
-    def _make_server_done(self, sid, meta, cntl, spec, status, start):
+    def _make_server_done(self, sid, meta, span, cntl, spec, status, start):
         fired = [False]
         fired_mu = threading.Lock()
 
@@ -302,15 +330,16 @@ class Server:
                         f"done() called twice for {meta.service}."
                         f"{meta.method} cid={meta.correlation_id}")
                 fired[0] = True
-            self._complete(sid, meta, cntl, spec, status, start, response)
+            self._complete(sid, meta, span, cntl, spec, status, start,
+                           response)
 
         return done
 
-    def _complete(self, sid: int, meta: M.RpcMeta, cntl, spec, status,
-                  start: float, response, exc: Exception | None = None
-                  ) -> None:
-        """The response path and its accounting, exactly once per
-        accepted request."""
+    def _complete(self, sid: int, meta: M.RpcMeta, span, cntl, spec,
+                  status, start: float, response,
+                  exc: Exception | None = None) -> None:
+        """The response path, its accounting and the server span's
+        submission, exactly once per accepted request."""
         cntl._done_factory = None
         error_code = 0
         t = Transport.instance()
@@ -337,6 +366,7 @@ class Server:
                 rbody, theader = res_ser.encode(response)
                 if meta.compress_type:
                     rbody = compress(rbody, meta.compress_type)
+                span.response_size = len(rbody)
                 if (cntl._stream is None and not cntl.response_attachment
                         and not theader and not meta.compress_type
                         and not cntl.response_user_fields):
@@ -379,6 +409,9 @@ class Server:
         finally:
             status.on_responded(error_code,
                                 int((time.monotonic() - start) * 1e6))
+            span.error_code = error_code
+            span.end_us = rpcz.now_us()
+            rpcz.submit(span)
             self._inflight_dec()
 
 

@@ -30,14 +30,18 @@ kernel on a card -- on whatever device the runner lives on.
     function receives each row's start offset.
 
 Formation zero-fills the bucket and copies every row in one native call
-(``brpc_batch_pad`` of the port's core, built at the first batcher).
-Instrumented through ``bvar``: batch size, queue delay (native latency
-recorder), pad waste, sheds, lane promotions, prefix-skip ratio.  Left
-out (ROADMAP): rpcz spans, host-CPU accounting, the named-lock ledger.
+(``native_path.batch_pad``, the port's ``_fastrpc`` over its buffers,
+releasing the interpreter lock); with ``native_hot_path_enabled`` off,
+the reference's numpy pad loop.  Instrumented through ``bvar``: batch
+size, queue delay (native latency recorder), pad waste, sheds, lane
+promotions, prefix-skip ratio; each request has an rpcz ``batch`` span
+under the submitting thread's trace (queue delay, promotion, prefix
+trim, shed); formation's host CPU goes to ``hostcpu``'s
+``batch_formation`` (the batch function's to ``model_compute``); the
+queue lock is the named ``batcher.queue``.
 """
 from __future__ import annotations
 
-import ctypes
 import logging
 import re
 import threading
@@ -47,8 +51,9 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import errors, fault
-from .._core import lib as _lib
+from .. import errors, fault, native_path, rpcz
+from ..butil import hostcpu
+from ..butil.lockprof import InstrumentedLock
 from ..bvar import Adder, IntRecorder, LatencyRecorder, PassiveStatus
 from ..bvar.variable import exposed_variables, find_exposed
 from ..models.runner import ModelRunner
@@ -99,7 +104,7 @@ class _Pending:
     completion (error or result, never neither, never both)."""
 
     __slots__ = ("item", "length", "skip", "enqueue_t", "deadline_s",
-                 "_fire", "_fired", "_mu")
+                 "span", "_fire", "_fired", "_mu")
 
     def __init__(self, item: np.ndarray, length: int,
                  deadline_s: Optional[float],
@@ -109,15 +114,25 @@ class _Pending:
         self.skip = 0              # prefix tokens served from the KV cache
         self.enqueue_t = time.monotonic()
         self.deadline_s = deadline_s
+        # the request's batch span, opened at enqueue under the caller's
+        # trace: queue delay heads it, shed/promotion/trim annotate it
+        self.span = rpcz.NULL_SPAN
         self._fire = fire
         self._fired = False
-        self._mu = threading.Lock()
+        self._mu = InstrumentedLock("batcher.pending")
 
     def complete(self, code: int, text: str, result) -> None:
         with self._mu:
             if self._fired:
                 return
             self._fired = True
+        span = self.span
+        if span is not rpcz.NULL_SPAN:
+            # the exactly-once completion submits the span exactly once
+            if code:
+                span.error_code = code
+                span.annotate(f"completed with error {code}: {text}")
+            rpcz.submit(span)
         try:
             self._fire(code, text, result)
         except Exception:
@@ -219,7 +234,6 @@ class DynamicBatcher:
         # the native recorder loads (and on first use builds) the core,
         # whose brpc_batch_pad formation calls
         self.queue_delay_rec = LatencyRecorder(f"serving_{safe}_queue_delay")
-        self._core = _lib.load()[0]
         self.shed = Adder(f"serving_{safe}_shed")
         self.brownout_shed = Adder(f"serving_{safe}_brownout_shed")
         self.n_batches = Adder(f"serving_{safe}_batches")
@@ -248,9 +262,10 @@ class DynamicBatcher:
         # overload-ladder level (0 = healthy), written by a supervisor
         self.brownout = 0
 
-        self._cv = threading.Condition(threading.Lock())
+        self._cv = threading.Condition(InstrumentedLock("batcher.queue"))
         self._q: list[_Pending] = []
         self._exec_ema_s = 0.0
+        self._fn_cpu_s = 0.0     # batch_fn CPU of the batch in flight
         self._running = True
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name=f"serving-batcher-{safe}")
@@ -330,6 +345,9 @@ class DynamicBatcher:
         if arr.ndim == 0:
             arr = arr.reshape(1)
         p = _Pending(arr, 0, deadline_s, fire)
+        # under the enqueuing thread's trace (the RPC server's span);
+        # set before any complete() path, so every outcome submits it
+        p.span = rpcz.child_span("batch", "Serving", self.name)
         if arr.ndim != 1:
             p.complete(errors.EREQUEST,
                        f"batcher items must be 1-D, got shape {arr.shape}",
@@ -490,12 +508,31 @@ class DynamicBatcher:
         promoted = sum(1 for i in take if i > first_left)
         if promoted:
             self.lane_promotions.add(promoted)
+            for i in take:
+                if i > first_left and \
+                        self._q[i].span is not rpcz.NULL_SPAN:
+                    self._q[i].span.annotate(
+                        "lane promotion: EDF selected this request "
+                        "ahead of an earlier-enqueued one")
         batch = [self._q[i] for i in take]
         for i in reversed(take):
             del self._q[i]
         return batch
 
     def _run_batch(self, batch: list[_Pending]) -> None:
+        # host CPU of formation: everything here but the batch
+        # function, which _execute times into _fn_cpu_s
+        t_cpu0 = time.thread_time()
+        self._fn_cpu_s = 0.0
+        try:
+            self._run_batch_inner(batch)
+        finally:
+            hostcpu.add("batch_formation",
+                        (time.thread_time() - t_cpu0 - self._fn_cpu_s)
+                        * 1e6)
+            hostcpu.add("model_compute", self._fn_cpu_s * 1e6)
+
+    def _run_batch_inner(self, batch: list[_Pending]) -> None:
         now = time.monotonic()
         live: list[_Pending] = []
         for p in batch:
@@ -509,7 +546,11 @@ class DynamicBatcher:
                 p.complete(errors.ELIMIT,
                            "deadline expired before batch formation", None)
             else:
-                self.queue_delay_rec.add(int((now - p.enqueue_t) * 1e6))
+                qd_us = int((now - p.enqueue_t) * 1e6)
+                self.queue_delay_rec.add(qd_us)
+                if p.span is not rpcz.NULL_SPAN:
+                    p.span.annotate(f"batch formed: queue_delay_us={qd_us}"
+                                    f" members={len(batch)}")
                 live.append(p)
         if not live:
             return
@@ -544,6 +585,10 @@ class DynamicBatcher:
             pinned.extend(pages)
             hit = max(0, min(hit, p.length - 1))
             if hit:
+                if p.span is not rpcz.NULL_SPAN:
+                    p.span.annotate(
+                        f"kv prefix trim: {hit}/{p.length} tokens served "
+                        f"from {len(pages)} pinned cached pages")
                 p.skip = hit
                 p.item = p.item[hit:]
                 p.length -= hit
@@ -562,18 +607,20 @@ class DynamicBatcher:
     def _form_batch(self, live: list[_Pending], bshape: int,
                     lbucket: int) -> np.ndarray:
         """The (bshape, lbucket) padded batch with live[i] in row i: the
-        zero-fill and every row's copy in ONE native call
-        (``brpc_batch_pad``), which releases the interpreter lock."""
-        padded = np.empty((bshape, lbucket), dtype=self.dtype)
-        # enqueue() made every item a 1-D array of self.dtype; a suffix
-        # trim keeps it contiguous, ascontiguousarray guards the memcpy
-        rows = [np.ascontiguousarray(p.item) for p in live]
-        n = len(rows)
-        size = self.dtype.itemsize
-        ptrs = (ctypes.c_void_p * n)(*[r.ctypes.data for r in rows])
-        nbytes = (ctypes.c_int64 * n)(*[p.length * size for p in live])
-        self._core.brpc_batch_pad(ptrs, nbytes, n, padded.ctypes.data,
-                                  lbucket * size, padded.nbytes)
+        zero-fill and every row's copy in ONE native call, which
+        releases the interpreter lock; the numpy loop with the native
+        hot path off."""
+        if native_path.enabled():
+            padded = np.empty((bshape, lbucket), dtype=self.dtype)
+            # enqueue() made every item a 1-D array of self.dtype; a
+            # suffix trim keeps it contiguous, ascontiguousarray guards
+            # the native copy
+            native_path.batch_pad(
+                padded, [np.ascontiguousarray(p.item) for p in live])
+            return padded
+        padded = np.zeros((bshape, lbucket), dtype=self.dtype)
+        for i, p in enumerate(live):
+            padded[i, : p.length] = p.item
         return padded
 
     def _execute(self, live: list[_Pending]) -> None:
@@ -595,6 +642,7 @@ class DynamicBatcher:
         self.batch_size_rec.add(n)
         self.n_batches.add(1)
         t0 = time.monotonic()
+        t_fn_cpu = time.thread_time()
         try:
             if fault.ENABLED and fault.hit(
                     fault.BATCH, name=self.name, batch=n) is not None:
@@ -610,6 +658,7 @@ class DynamicBatcher:
                 out = out.detach().cpu().numpy()
             out = np.asarray(out)
         except Exception as e:
+            self._fn_cpu_s = time.thread_time() - t_fn_cpu
             # a failed batch completes EVERY member exactly once with a
             # definite error: never a hang, never a partial scatter
             self.n_errors.add(n)
@@ -620,6 +669,7 @@ class DynamicBatcher:
                            f"batch execution failed: "
                            f"{type(e).__name__}: {e}", None)
             return
+        self._fn_cpu_s = time.thread_time() - t_fn_cpu
         dt = time.monotonic() - t0
         self._exec_ema_s = dt if self._exec_ema_s == 0.0 \
             else 0.7 * self._exec_ema_s + 0.3 * dt

@@ -46,15 +46,32 @@ token streams to its caller per step.
     old loop.  ``degraded_clamp`` (the overload ladder's) caps new
     submissions' ``max_new_tokens``.  Fault sites: ``serving.step``,
     ``serving.spec_verify``, ``serving.heartbeat`` (``fault.py``).
+  * the native hot path (``native_path``, flag
+    ``native_hot_path_enabled``, on by default): each request's emit
+    buffer is a native ``TokenRing``; a step's tokens, for every slot,
+    go out in ONE ``brpc_tokring_push_many`` inside the commit lock,
+    and each emitter drains a batch per wakeup; page tables are filled
+    by one native call.  The flag is read per request and per step:
+    off, the Python ``_EmitBuf`` and the numpy fill give the same
+    streams, and rings already handed out keep draining natively.
+  * telemetry: a ``decode`` span per slot and a ``prefill`` span per
+    admission, under the request's trace (the RPC server's span, or the
+    supervisor's attempt span), with the KV store's annotations; the
+    TTFT, inter-token and per-stage latency recorders; per-stage host
+    CPU (``butil/hostcpu.py``); the named locks ``engine.slots``,
+    ``engine.commit`` and ``serving.emit_buf``; the engine's counters
+    as ``serving_<name>_*`` bvars.
 
-Not in this port yet (see ROADMAP.md): the native token ring, rpcz
-spans and host-CPU accounting, the bvar counters and the legacy
-step-function adapter.
+Not in this port yet (see ROADMAP.md): the legacy step-function adapter
+(and with it the raw-block mode).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import itertools
 import logging
+import re
 import threading
 import time
 from collections import deque
@@ -62,7 +79,12 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-from .. import errors, fault
+from .. import errors, fault, native_path, rpcz
+from .._core import lib as _lib
+from ..butil import hostcpu, stagetag
+from ..butil.lockprof import InstrumentedLock
+from ..bvar import (Adder, IntRecorder, LatencyRecorder, PassiveStatus,
+                    exposed_variables, find_exposed)
 from ..device import resolve_device
 from ..ops.paged_attention import MAX_LOCAL_WIDTH
 from .speculative import as_proposer
@@ -73,18 +95,43 @@ _log = logging.getLogger(__name__)
 # hard per-request ceiling: a buggy max_new_tokens must not pin a slot
 MAX_NEW_TOKENS_CAP = 65536
 
+# serving-wide draft acceptance: one scrapeable ratio
+SPEC_PROPOSED = Adder("serving_spec_proposed_tokens")
+SPEC_ACCEPTED = Adder("serving_spec_accepted_tokens")
+
+
+def _spec_accept_rate() -> float:
+    p = SPEC_PROPOSED.get_value()
+    return round(SPEC_ACCEPTED.get_value() / p, 4) if p else 0.0
+
+
+PassiveStatus(_spec_accept_rate).expose("serving_spec_accept_rate")
+
+
+@functools.cache
+def latency_recorders() -> dict:
+    """The serving-wide latency recorders: TTFT (submit -> first token
+    in the emit buffer), inter-token gap, and the stages (queue =
+    submit -> slot install, prefill, decode = install -> retire).  Made
+    at the first engine, not at import: a native recorder loads the
+    core."""
+    return {name: LatencyRecorder(f"serving_{name}_us")
+            for name in ("ttft", "itl", "stage_queue", "stage_prefill",
+                         "stage_decode")}
+
 
 class _EmitBuf:
     """Bounded token buffer between the step loop and one request's
-    emitter thread.  ``push`` never blocks; the terminal marker is
-    always accepted."""
+    emitter thread (the flag-off path).  ``push`` never blocks; the
+    terminal marker is always accepted."""
 
     __slots__ = ("cap", "q", "cv", "terminal", "has_terminal")
 
     def __init__(self, cap: int):
         self.cap = cap
         self.q: deque = deque()
-        self.cv = threading.Condition(threading.Lock())
+        # every request's buffer shares ONE ledger row
+        self.cv = threading.Condition(InstrumentedLock("serving.emit_buf"))
         self.terminal = None
         self.has_terminal = False
 
@@ -115,22 +162,70 @@ class _EmitBuf:
             return None
 
 
+class _NativeEmitBuf:
+    """A native bounded emit ring with the _EmitBuf protocol plus a
+    batch pop.  The step loop pushes every slot's tokens in ONE
+    ``brpc_tokring_push_many`` (``push`` here is the single-token
+    entry), the emitter drains many tokens per wakeup.  The semantics
+    are _EmitBuf's: push never blocks, a full ring cuts the consumer,
+    the terminal is always accepted and surfaces after every buffered
+    token."""
+
+    __slots__ = ("ring", "cap", "popbuf")
+
+    def __init__(self, ring, cap: int):
+        self.ring = ring
+        self.cap = cap
+        # the emitter thread's scratch (single consumer)
+        self.popbuf = (ctypes.c_int32 * min(int(cap), 512))()
+
+    @property
+    def handle(self):
+        return self.ring.handle
+
+    def push(self, tok: int) -> bool:
+        return self.ring.push(int(tok))
+
+    def push_terminal(self, err) -> None:
+        self.ring.push_terminal(err)
+
+    def pop_batch(self, timeout_s: float):
+        """(count, terminal_seen, err); the tokens land in ``popbuf``."""
+        return self.ring.pop_many(self.popbuf, timeout_s)
+
+
+def _make_emit_buf(cap: int):
+    ring = native_path.token_ring(cap)
+    if ring is not None:
+        return _NativeEmitBuf(ring, cap)
+    return _EmitBuf(cap)
+
+
 class _Request:
     __slots__ = ("req_id", "prompt", "max_new_tokens", "emit", "on_done",
-                 "buf", "speculative", "_done_fired", "_mu")
+                 "buf", "t_submit", "trace", "speculative", "_done_fired",
+                 "_mu")
 
     def __init__(self, prompt: Sequence[int], max_new_tokens: int,
                  emit: Callable[[int], None], on_done: Optional[Callable],
-                 emit_buffer: int, speculative: bool = True):
+                 emit_buffer: int, trace_ctx: Optional[tuple] = None,
+                 speculative: bool = True):
         self.req_id = next(_req_ids)
         self.prompt = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
         self.speculative = bool(speculative)
         self.emit = emit
         self.on_done = on_done
-        self.buf = _EmitBuf(emit_buffer)
+        self.buf = _make_emit_buf(emit_buffer)
+        self.t_submit = time.monotonic()
+        # (trace_id, parent_span_id, sampled): the submitting thread's
+        # current span (the RPC server's) or the supervisor's attempt
+        # span; the decode slot runs on the engine thread, where the
+        # context variable does not follow
+        self.trace = trace_ctx if trace_ctx is not None \
+            else rpcz.current_trace_ctx()
         self._done_fired = False
-        self._mu = threading.Lock()
+        self._mu = InstrumentedLock("serving.request")
 
     @property
     def done_fired(self) -> bool:
@@ -151,14 +246,24 @@ class _Request:
 
 class _Slot:
     __slots__ = ("req", "seq", "last_token", "position", "generated",
-                 "spec_steps", "spec_proposed", "spec_accepted")
+                 "span", "t_install", "t_first_tok", "last_tok_t", "itl_n",
+                 "itl_sum_s", "itl_max_s", "steps_run", "spec_steps",
+                 "spec_proposed", "spec_accepted")
 
-    def __init__(self, req: _Request, seq):
+    def __init__(self, req: _Request, seq, span=rpcz.NULL_SPAN):
         self.req = req
         self.seq = seq
         self.last_token = req.prompt[-1]
         self.position = len(req.prompt)
         self.generated = 0
+        self.span = span              # the slot's decode span
+        self.t_install = time.monotonic()
+        self.t_first_tok = 0.0
+        self.last_tok_t = 0.0
+        self.itl_n = 0                # inter-token gaps recorded
+        self.itl_sum_s = 0.0
+        self.itl_max_s = 0.0
+        self.steps_run = 0            # engine iterations ridden
         self.spec_steps = 0           # verify iterations ridden
         self.spec_proposed = 0        # draft tokens proposed
         self.spec_accepted = 0        # draft tokens accepted
@@ -226,12 +331,22 @@ class DecodeEngine:
         self.eos_token = eos_token
         self.emit_buffer = int(emit_buffer)
         self.name = name
-        self.steps = 0
+        self._rec = latency_recorders()
+        safe = re.sub(r"\W", "_", name)
+        # the EXACT names exposed here, so close() hides only this
+        # engine's (a prefix wildcard would strip a sibling's too)
+        pre = set(exposed_variables(f"serving_{safe}*"))
+        self.steps = Adder(f"serving_{safe}_steps")
+        self.tokens_out = Adder(f"serving_{safe}_tokens")
+        self.retired = Adder(f"serving_{safe}_retired")
+        self.admit_errors = Adder(f"serving_{safe}_admit_errors")
+        self.emit_cut = Adder(f"serving_{safe}_emit_cut")
+        self.occupancy_rec = IntRecorder(f"serving_{safe}_occupancy")
+        PassiveStatus(self.active_count).expose(
+            f"serving_{safe}_active_slots")
+        self._bvar_names = [n for n in exposed_variables(f"serving_{safe}*")
+                            if n not in pre]
         self.step_seconds = 0.0
-        self.tokens_out = 0
-        self.retired = 0
-        self.admit_errors = 0
-        self.emit_cut = 0
         self.verify_calls = 0
         self.verify_seconds = 0.0
         self.propose_seconds = 0.0
@@ -247,13 +362,22 @@ class DecodeEngine:
         self._crashed: Optional[BaseException] = None
         self._taken_over = False
         self.degraded_clamp: Optional[int] = None
+        self._prefill_fn_cpu_s = 0.0   # runner CPU of the last prefill
         self._beat_steps = 0
         self._beat_t = time.monotonic()
+        # the one native push per step: (ring, token) pairs for every
+        # slot's run of this iteration (a verify's burst per slot),
+        # owned by the engine thread
+        pushcap = self.num_slots * \
+            (self.draft_len + 1 if self._draft is not None else 1)
+        self._push_handles = (ctypes.c_void_p * pushcap)()
+        self._push_toks = (ctypes.c_int32 * pushcap)()
+        self._push_ok = (ctypes.c_uint8 * pushcap)()
         # held by the loop while it commits a step's results to its
-        # slots, and by takeover(): a takeover lands between commits,
-        # never inside one
-        self._commit_mu = threading.Lock()
-        self._cv = threading.Condition(threading.Lock())
+        # slots (and pushes their tokens), and by takeover(): a takeover
+        # lands between commits, never inside one
+        self._commit_mu = InstrumentedLock("engine.commit")
+        self._cv = threading.Condition(InstrumentedLock("engine.slots"))
         self._slots: list[Optional[_Slot]] = [None] * self.num_slots
         self._waiters: deque[_Request] = deque()
         # claimed from _waiters but not installed yet (admission runs
@@ -271,20 +395,24 @@ class DecodeEngine:
     def submit(self, prompt: Sequence[int], max_new_tokens: int,
                emit: Callable[[int], None],
                on_done: Optional[Callable] = None, *,
-               clamp: bool = True, speculative: bool = True) -> int:
+               clamp: bool = True, trace_ctx: Optional[tuple] = None,
+               speculative: bool = True) -> int:
         """Queue a request for the next step boundary with a free slot.
         Returns the request id; ``on_done(err)`` fires exactly once.
         ``clamp=False`` exempts it from ``degraded_clamp`` (a
         supervisor's re-admission keeps the budget it was admitted
-        with).  ``speculative=False`` keeps a speculative engine from
-        proposing for this request (it rides the verify batch as a plain
-        row)."""
+        with).  ``trace_ctx=(trace_id, parent_span_id, sampled)``
+        replaces the calling thread's trace (the supervisor passes its
+        attempt span).  ``speculative=False`` keeps a speculative engine
+        from proposing for this request (it rides the verify batch as a
+        plain row)."""
         limit = MAX_NEW_TOKENS_CAP
         brownout = self.degraded_clamp
         if clamp and brownout is not None:
             limit = min(limit, int(brownout))
         req = _Request(prompt, min(int(max_new_tokens), limit),
-                       emit, on_done, self.emit_buffer, speculative)
+                       emit, on_done, self.emit_buffer, trace_ctx=trace_ctx,
+                       speculative=speculative)
         if req.max_new_tokens <= 0:
             req.finish(errors.RpcError(errors.EREQUEST,
                                        "max_new_tokens must be > 0"))
@@ -314,7 +442,15 @@ class DecodeEngine:
         """Admit one claimed request into the store and a free slot.  A
         failed admission finishes THAT request with ELIMIT.  Returns
         ``(index, slot)`` or None."""
-        seq = None
+        # the slot's decode span: under the request's trace, it carries
+        # TTFT, the inter-token summary and the KV annotations of the
+        # whole residency (NULL_SPAN with rpcz off: writes absorb free)
+        tid, psid, smp = req.trace
+        span = rpcz.new_span("decode", "Serving", self.name,
+                             trace_id=tid, parent_span_id=psid,
+                             sampled=smp if tid else None)
+        queue_us = int((time.monotonic() - req.t_submit) * 1e6)
+        self._rec["stage_queue"].add(queue_us)
         try:
             # reject before admit allocates anything: a prompt that
             # cannot fit the page table would decode on a truncated one
@@ -323,13 +459,21 @@ class DecodeEngine:
                 raise MemoryError(f"prompt needs {need} pages "
                                   f"(> max_pages_per_slot="
                                   f"{self.max_pages_per_slot})")
-            seq = self.store.admit(req.prompt)
+            seq = self.store.admit(req.prompt, span=span)
         except Exception as e:
-            self.admit_errors += 1
+            self.admit_errors.add(1)
+            if span is not rpcz.NULL_SPAN:
+                span.error_code = errors.ELIMIT
+                span.annotate(f"kv admit failed: {type(e).__name__}: {e}")
+                rpcz.submit(span)
             req.finish(errors.RpcError(
                 errors.ELIMIT, f"KV admit failed: {type(e).__name__}: {e}"))
             return None
-        slot = _Slot(req, seq)
+        if span is not rpcz.NULL_SPAN:
+            span.annotate(f"slot install: queue_us={queue_us} "
+                          f"prompt={len(req.prompt)} "
+                          f"budget={req.max_new_tokens}")
+        slot = _Slot(req, seq, span)
         with self._cv:
             if self._running:
                 for i in range(self.num_slots):
@@ -341,6 +485,11 @@ class DecodeEngine:
         # supervisor resubmits this prompt, and its admission then hits
         taken = self._taken_over
         self.store.retire(seq, cache=taken)
+        if span is not rpcz.NULL_SPAN:
+            span.error_code = errors.ELOGOFF
+            span.annotate("engine closed mid-admit"
+                          + (" (supervisor takeover)" if taken else ""))
+            rpcz.submit(span)
         req.finish(errors.RpcError(
             errors.ELOGOFF,
             "engine restarting (supervisor takeover)" if taken
@@ -354,14 +503,21 @@ class DecodeEngine:
                          name=f"serving-emit-{req.req_id}").start()
 
     def _emit_pump(self, req: _Request) -> None:
+        if isinstance(req.buf, _NativeEmitBuf):
+            return self._emit_pump_native(req)
         while True:
             item = req.buf.pop(0.25)
             if item is None:
                 if req.done_fired:
                     return
                 continue
+            # the pop's wait burns no thread time: from here on it is
+            # the delivery's own host CPU
+            t_cpu0 = time.thread_time()
             kind, val = item
             if kind == "done":
+                hostcpu.add("emit_fanout",
+                            (time.thread_time() - t_cpu0) * 1e6)
                 req.finish(val)
                 return
             try:
@@ -371,15 +527,50 @@ class DecodeEngine:
                     errors.EINTERNAL,
                     f"emit failed: {type(e).__name__}: {e}"))
                 return
+            finally:
+                hostcpu.add("emit_fanout",
+                            (time.thread_time() - t_cpu0) * 1e6)
+
+    def _emit_pump_native(self, req: _Request) -> None:
+        """The native ring's emitter: each wakeup drains a batch of
+        tokens in one call that waits off the interpreter lock, then
+        delivers them; every buffered token goes out before on_done
+        fires, exactly once."""
+        buf: _NativeEmitBuf = req.buf
+        out = buf.popbuf
+        while True:
+            n, term, err = buf.pop_batch(0.25)
+            if n == 0 and not term:
+                if req.done_fired:
+                    return
+                continue
+            t_cpu0 = time.thread_time()
+            try:
+                for k in range(n):
+                    req.emit(int(out[k]))
+            except Exception as e:
+                hostcpu.add("emit_fanout",
+                            (time.thread_time() - t_cpu0) * 1e6)
+                self._cancel(req, errors.RpcError(
+                    errors.EINTERNAL,
+                    f"emit failed: {type(e).__name__}: {e}"))
+                return
+            hostcpu.add("emit_fanout", (time.thread_time() - t_cpu0) * 1e6)
+            if term:
+                req.finish(err)
+                return
 
     def _cancel(self, req: _Request, err) -> None:
         """Retire `req`'s slot from an emitter thread (its consumer
         died); finish() is exactly-once, so racing the loop is benign."""
+        released = None
         with self._cv:
             for i, s in enumerate(self._slots):
                 if s is not None and s.req is req:
-                    self._release_slot_locked(i, cache_ok=False)
+                    released = self._release_slot_locked(i, cache_ok=False)
                     break
+        if released is not None:
+            self._finalize_slot(released, err.code)
         req.finish(err)
 
     # ---- prefill ----
@@ -387,6 +578,7 @@ class DecodeEngine:
     def _prefill(self, i: int, slot: _Slot) -> None:
         """Prefill the prompt's uncached suffix, bucket-padded; the
         cached prefix is skipped entirely."""
+        self._prefill_fn_cpu_s = 0.0
         suffix = slot.req.prompt[slot.seq.prefill_from:]
         if not suffix:
             return
@@ -395,13 +587,34 @@ class DecodeEngine:
         padded = np.zeros((bucket,), np.int32)
         padded[:n] = suffix
         positions = slot.seq.prefill_from + np.arange(bucket, dtype=np.int32)
+        # the prefill span: the cached/uncached split is what a prefix
+        # hit bought
+        pspan = rpcz.NULL_SPAN
+        if slot.span is not rpcz.NULL_SPAN:
+            pspan = rpcz.new_span("prefill", "Serving", self.name,
+                                  trace_id=slot.span.trace_id,
+                                  parent_span_id=slot.span.span_id,
+                                  sampled=slot.span.sampled)
+            pspan.annotate(f"prefill: cached={slot.seq.prefill_from} "
+                           f"uncached={n} bucket={bucket}")
+        t0 = time.monotonic()
+        t_fn_cpu = time.thread_time()
         try:
             self.runner.prefill(padded, positions, self._table_row(slot.seq),
                                 seq=slot.seq)
         except Exception as e:
+            self._prefill_fn_cpu_s = time.thread_time() - t_fn_cpu
             _log.exception("prefill failed")
+            if pspan is not rpcz.NULL_SPAN:
+                pspan.error_code = errors.EINTERNAL
+                pspan.annotate(f"prefill failed: {type(e).__name__}: {e}")
+                rpcz.submit(pspan)
             self._retire(i, errors.RpcError(
                 errors.EINTERNAL, f"prefill failed: {type(e).__name__}: {e}"))
+            return
+        self._prefill_fn_cpu_s = time.thread_time() - t_fn_cpu
+        self._rec["stage_prefill"].add(int((time.monotonic() - t0) * 1e6))
+        rpcz.submit(pspan)
 
     # ---- the step loop ----
 
@@ -413,6 +626,15 @@ class DecodeEngine:
         return row
 
     def _gather_page_tables(self, active) -> np.ndarray:
+        if native_path.enabled():
+            # one native fill (the interpreter lock released); the row
+            # arrays stay referenced until it returns
+            table = np.empty((self.num_slots, self.max_pages_per_slot),
+                             np.int32)
+            rows = [np.asarray(s.seq.page_ids(), np.int32)
+                    for _, s in active]
+            native_path.page_table_fill(table, rows, [i for i, _ in active])
+            return table
         table = np.full((self.num_slots, self.max_pages_per_slot), -1,
                         np.int32)
         for i, s in active:
@@ -427,13 +649,24 @@ class DecodeEngine:
                     return
                 claimed = self._claim_waiters_locked()
             for req in claimed:
-                installed = self._admit(req)
-                with self._cv:
-                    self._admitting -= 1
-                if installed is None:
-                    continue
-                i, s = installed
-                self._prefill(i, s)
+                # admission and prefill are prefill work, though the
+                # engine thread's name says decode_step
+                with stagetag.stage("prefill"):
+                    t_cpu0 = time.thread_time()
+                    installed = self._admit(req)
+                    with self._cv:
+                        self._admitting -= 1
+                    if installed is None:
+                        hostcpu.add("prefill",
+                                    (time.thread_time() - t_cpu0) * 1e6)
+                        continue
+                    i, s = installed
+                    self._prefill(i, s)
+                    hostcpu.add("prefill",
+                                (time.thread_time() - t_cpu0
+                                 - self._prefill_fn_cpu_s) * 1e6)
+                    hostcpu.add("model_compute",
+                                self._prefill_fn_cpu_s * 1e6)
                 self._start_emitter(req)
                 self._touch_beat()      # a long prefill is progress
             with self._cv:
@@ -501,6 +734,7 @@ class DecodeEngine:
     def _step(self, active) -> bool:
         """One decode iteration across every active slot.  Returns False
         when the loop must stop (a supervised crash)."""
+        t_cpu0 = time.thread_time()
         tok = np.zeros((self.num_slots,), np.int32)
         pos = np.zeros((self.num_slots,), np.int32)
         for i, s in active:
@@ -508,6 +742,7 @@ class DecodeEngine:
             pos[i] = s.position
         pages = self._gather_page_tables(active)
         t0 = time.perf_counter()
+        t_fn_cpu = time.thread_time()
         try:
             if fault.ENABLED and fault.hit(
                     fault.STEP, name=self.name) is not None:
@@ -526,15 +761,22 @@ class DecodeEngine:
             return True
         # runner.step returns host tokens, so the device work is done
         self.step_seconds += time.perf_counter() - t0
-        self.steps += 1
+        fn_cpu_s = time.thread_time() - t_fn_cpu
+        self.steps.add(1)
+        self.occupancy_rec.add(len(active))
         with self._commit_mu:
             self._commit_step(active, out, kv_rows)
+        # this iteration's bookkeeping, the runner call apart
+        hostcpu.add("decode_step",
+                    (time.thread_time() - t_cpu0 - fn_cpu_s) * 1e6)
+        hostcpu.add("model_compute", fn_cpu_s * 1e6)
         return True
 
     def _commit_step(self, active, out, kv_rows) -> None:
         """Write the step's K/V rows and emit its tokens, for the slots
         this loop still owns (an emitter may have cancelled one, a
         takeover stolen all)."""
+        t_tok = time.monotonic()
         items = [(i, s) for i, s in active if self._slots[i] is s]
         fails = self.store.write_kv_batch(
             [(s.seq, s.position - 1, kv_rows[i:i + 1]) for i, s in items])
@@ -545,6 +787,7 @@ class DecodeEngine:
             self._retire(i, errors.RpcError(
                 errors.EINTERNAL, f"KV write failed: {type(e).__name__}: "
                                   f"{e}"))
+        deliver = []
         for i, s in active:
             if i in bad or self._slots[i] is not s:
                 continue      # an emitter cancelled it mid-step
@@ -552,12 +795,16 @@ class DecodeEngine:
             s.last_token = nxt
             s.position += 1
             s.generated += 1
-            self.tokens_out += 1
+            s.steps_run += 1
+            self.tokens_out.add(1)
+            hostcpu.tokens_total.add(1)
+            self._record_arrival(s, t_tok)
             if not self._extend(i, s, nxt):
                 continue
             if self._page_overflow(i, s):
                 continue
-            self._emit_run(i, s, [nxt])
+            deliver.append((i, s, (nxt,)))
+        self._emit_runs(deliver)
 
     def _extend(self, i: int, s: _Slot, tok: int) -> bool:
         """Append `tok` to slot i's sequence; on failure retire the slot
@@ -585,18 +832,74 @@ class DecodeEngine:
             f"page table overflow (> {self.max_pages_per_slot} pages)"))
         return True
 
-    def _emit_run(self, i: int, s: _Slot, toks: list) -> None:
-        """Stream slot i's tokens of this iteration, then retire it if it
-        is done.  A consumer that stopped draining is cut here, without
-        the step loop ever blocking in a write."""
-        if not all(s.req.buf.push(t) for t in toks):
-            self.emit_cut += 1
-            self._retire(i, errors.RpcError(
-                errors.EOVERCROWDED,
-                "slow stream consumer: emit buffer overflow"))
-        elif s.generated >= s.req.max_new_tokens or \
-                (self.eos_token is not None and toks[-1] == self.eos_token):
-            self._retire(i, None)
+    def _record_arrival(self, s: _Slot, t_tok: float) -> None:
+        """TTFT at a slot's first tokens, one inter-token gap after
+        (one per verify burst: a burst's tokens arrive together)."""
+        if s.last_tok_t:
+            gap = t_tok - s.last_tok_t
+            self._rec["itl"].add(int(gap * 1e6))
+            s.itl_n += 1
+            s.itl_sum_s += gap
+            s.itl_max_s = max(s.itl_max_s, gap)
+        else:
+            s.t_first_tok = t_tok
+            ttft_us = int((t_tok - s.req.t_submit) * 1e6)
+            self._rec["ttft"].add(ttft_us)
+            if s.span is not rpcz.NULL_SPAN:
+                s.span.annotate(f"first token: ttft_us={ttft_us}")
+        s.last_tok_t = t_tok
+
+    def _emit_runs(self, deliver: list) -> None:
+        """Stream each ``(i, slot, tokens)`` of this iteration, then
+        retire the slots that are done.  A consumer that stopped
+        draining is cut here, without the step loop ever blocking in a
+        write."""
+        for (i, s, toks), ok in zip(deliver, self._push_token_runs(deliver)):
+            if not ok:
+                self.emit_cut.add(1)
+                if s.span is not rpcz.NULL_SPAN:
+                    s.span.annotate(
+                        f"emit-buffer stall: {self.emit_buffer} buffered "
+                        f"tokens undrained, consumer cut")
+                self._retire(i, errors.RpcError(
+                    errors.EOVERCROWDED,
+                    "slow stream consumer: emit buffer overflow"))
+            elif s.generated >= s.req.max_new_tokens or \
+                    (self.eos_token is not None
+                     and toks[-1] == self.eos_token):
+                self._retire(i, None)
+
+    def _push_token_runs(self, deliver: list) -> list:
+        """THE emit fan-out: every native ring's run rides ONE
+        ``brpc_tokring_push_many`` (the interpreter lock released) as
+        consecutive (ring, token) pairs, which the rings keep in call
+        order; a Python _EmitBuf pushes token by token.  An entry reads
+        False when any of its tokens did not land: its consumer is cut,
+        so a partial burst only ever precedes an error terminal.  The
+        slots in ``deliver`` hold their requests, and so the rings,
+        alive across the native call."""
+        ok = [True] * len(deliver)
+        native = []               # (entry index, token)
+        for k, (_, s, toks) in enumerate(deliver):
+            buf = s.req.buf
+            if isinstance(buf, _NativeEmitBuf):
+                native.extend((k, t) for t in toks)
+            else:
+                for t in toks:
+                    if not buf.push(t):
+                        ok[k] = False
+                        break
+        if native:
+            h, t = self._push_handles, self._push_toks
+            for j, (k, tk) in enumerate(native):
+                h[j] = deliver[k][1].req.buf.handle
+                t[j] = tk
+            _lib.core.brpc_tokring_push_many(h, t, len(native),
+                                             self._push_ok)
+            for j, (k, _) in enumerate(native):
+                if not self._push_ok[j]:
+                    ok[k] = False
+        return ok
 
     # ---- speculative decoding ----
 
@@ -650,6 +953,7 @@ class DecodeEngine:
         at different accept depths, and slots with no draft, share the
         one fixed-shape verify batch.  Returns False when the loop must
         stop (a supervised crash)."""
+        t_cpu0 = time.thread_time()
         k1 = self.draft_len + 1
         # ---- propose + lease ----
         t0 = time.perf_counter()
@@ -709,6 +1013,7 @@ class DecodeEngine:
                 plan.rows.append(rows)
         # ---- verify: every row of every slot, one call ----
         t0 = time.perf_counter()
+        t_fn_cpu = time.thread_time()
         try:
             if fault.ENABLED and fault.hit(
                     fault.SPEC_VERIFY, name=self.name) is not None:
@@ -730,18 +1035,24 @@ class DecodeEngine:
             return True
         # runner.verify returns host tokens, so the device work is done
         dt = time.perf_counter() - t0
+        fn_cpu_s = time.thread_time() - t_fn_cpu
         self.step_seconds += dt
         self.verify_seconds += dt
-        self.steps += 1
+        self.steps.add(1)
+        self.occupancy_rec.add(len(active))
         self.verify_calls += 1
         with self._commit_mu:
             self._commit_verify(active, plans, tok, out, kv_rows)
+        hostcpu.add("decode_step",
+                    (time.thread_time() - t_cpu0 - fn_cpu_s) * 1e6)
+        hostcpu.add("model_compute", fn_cpu_s * 1e6)
         return True
 
     def _commit_verify(self, active, plans, tok, out, kv_rows) -> None:
         """Accept, commit and emit one verify's results for the slots
         this loop still owns; a slot released meanwhile gets its draft
         lease back."""
+        t_tok = time.monotonic()
         # ---- accept + commit ----
         writes, owners = [], []
         staged: dict[int, tuple] = {}
@@ -780,6 +1091,7 @@ class DecodeEngine:
                     f = plan.forks[winner - 1]
                     plan.forks[winner - 1] = None
                     f.prefill_from = s.seq.prefill_from
+                    f.span = s.seq.span
                     self.store.retire(s.seq, cache=False)
                     s.seq = f
                 self.store.rollback(s.seq, plan.base + kept)
@@ -809,6 +1121,7 @@ class DecodeEngine:
                 errors.EINTERNAL,
                 f"KV write failed: {type(e).__name__}: {e}"))
         # ---- bookkeeping + emission ----
+        deliver = []
         for i, s in active:
             st = staged.get(i)
             if st is None:
@@ -828,15 +1141,21 @@ class DecodeEngine:
             s.last_token = toks[-1]
             s.position = len(s.seq.tokens)
             s.generated += len(toks)
+            s.steps_run += 1
             s.spec_steps += 1
             s.spec_proposed += proposed
             s.spec_accepted += kept
-            self.tokens_out += len(toks)
+            self.tokens_out.add(len(toks))
+            hostcpu.tokens_total.add(len(toks))
             self.spec_steps += 1
             self.spec_proposed += proposed
             self.spec_accepted += kept
             self.spec_tokens += len(toks)
-            self._emit_run(i, s, toks)
+            SPEC_PROPOSED.add(proposed)
+            SPEC_ACCEPTED.add(kept)
+            self._record_arrival(s, t_tok)
+            deliver.append((i, s, toks))
+        self._emit_runs(deliver)
 
     def _release_slot_locked(self, i: int, cache_ok: bool = True):
         """Free slot i under the cv, retiring its sequence exactly once
@@ -845,14 +1164,67 @@ class DecodeEngine:
         if s is None:
             return None
         self._slots[i] = None
-        self.retired += 1
+        self.retired.add(1)
         self.store.retire(s.seq, cache=cache_ok)
         return s
+
+    def _finalize_slot(self, s: _Slot, err_code: int) -> None:
+        """Close a retiring slot's telemetry: the decode span (the
+        inter-token summary, the error code) and one record in the
+        serving registry's recent-generation ring."""
+        dur_us = int((time.monotonic() - s.t_install) * 1e6)
+        self._rec["stage_decode"].add(dur_us)
+        ttft_us = int((s.t_first_tok - s.req.t_submit) * 1e6) \
+            if s.t_first_tok else 0
+        itl_avg_us = int(s.itl_sum_s / s.itl_n * 1e6) if s.itl_n else 0
+        itl_max_us = int(s.itl_max_s * 1e6)
+        spec = None
+        if self._draft is not None and s.spec_steps:
+            spec = {
+                "spec_proposed": s.spec_proposed,
+                "spec_accepted": s.spec_accepted,
+                "accept_rate": round(s.spec_accepted / s.spec_proposed, 4)
+                if s.spec_proposed else 0.0,
+                "draft_depth": round(s.spec_proposed / s.spec_steps, 2),
+                # over every iteration, the plain-step ones too
+                "tokens_per_step": round(s.generated / max(1, s.steps_run),
+                                         2),
+            }
+        span = s.span
+        if span is not rpcz.NULL_SPAN:
+            span.error_code = span.error_code or err_code
+            span.annotate(
+                f"retired: generated={s.generated} ttft_us={ttft_us} "
+                f"itl_avg_us={itl_avg_us} itl_max_us={itl_max_us}")
+            if spec is not None:
+                span.annotate(
+                    f"speculative: accept_rate={spec['accept_rate']} "
+                    f"draft_depth={spec['draft_depth']} "
+                    f"tokens_per_step={spec['tokens_per_step']} "
+                    f"({spec['spec_accepted']}/{spec['spec_proposed']} "
+                    f"drafts accepted over {s.spec_steps} verifies)")
+            rpcz.submit(span)
+        from . import record_generation
+        record_generation({
+            "engine": self.name,
+            "req_id": s.req.req_id,
+            "trace_id": span.trace_id,
+            "prompt_len": len(s.req.prompt),
+            "prefix_hit": s.seq.prefix_hit_tokens,
+            "generated": s.generated,
+            "ttft_us": ttft_us,
+            "itl_avg_us": itl_avg_us,
+            "itl_max_us": itl_max_us,
+            "duration_us": dur_us,
+            "error_code": err_code,
+            **(spec or {}),
+        })
 
     def _retire(self, i: int, err) -> None:
         with self._cv:
             s = self._release_slot_locked(i, cache_ok=err is None)
         if s is not None:
+            self._finalize_slot(s, err.code if err is not None else 0)
             s.req.buf.push_terminal(err)
 
     # ---- lifecycle / introspection ----
@@ -873,6 +1245,10 @@ class DecodeEngine:
                 self._slots = [None] * self.num_slots
                 waiters, self._waiters = list(self._waiters), deque()
         return stolen, waiters
+
+    def active_count(self) -> int:
+        with self._cv:
+            return sum(1 for s in self._slots if s is not None)
 
     def queue_depth(self) -> float:
         """Admission backlog per slot (queued and mid-admission waiters
@@ -895,9 +1271,16 @@ class DecodeEngine:
                         for i in range(self.num_slots)]
             waiters, self._waiters = list(self._waiters), deque()
         for s in filter(None, released):
+            self._finalize_slot(s, errors.ELOGOFF)
             s.req.buf.push_terminal(err)
         for req in waiters:
             req.finish(err)
+        # unpin the exposed variables: their bound methods would keep a
+        # closed engine alive in the registry
+        for n in self._bvar_names:
+            v = find_exposed(n)
+            if v is not None:
+                v.hide()
 
     def join_idle(self, timeout_s: float = 30.0) -> bool:
         """Block until no request is active or queued."""
@@ -926,17 +1309,18 @@ class DecodeEngine:
                     "spec_accepted": s.spec_accepted,
                 } for s in self._slots]
             queued = len(self._waiters) + self._admitting
-        return {
+        out = {
             "num_slots": self.num_slots,
             "slots": slot_map,
             "queued": queued,
-            "steps": self.steps,
+            "steps": self.steps.get_value(),
             "step_seconds": self.step_seconds,
-            "tokens": self.tokens_out,
-            "retired": self.retired,
-            "admit_errors": self.admit_errors,
+            "tokens": self.tokens_out.get_value(),
+            "retired": self.retired.get_value(),
+            "admit_errors": self.admit_errors.get_value(),
             "emit_buffer": self.emit_buffer,
-            "emit_cut": self.emit_cut,
+            "emit_cut": self.emit_cut.get_value(),
+            "avg_step_occupancy": round(self.occupancy_rec.get_value(), 2),
             "heartbeat_steps": self._beat_steps,
             "heartbeat_age_s": round(time.monotonic() - self._beat_t, 3),
             "crashed": self._crashed is not None,
@@ -960,3 +1344,7 @@ class DecodeEngine:
             "kvcache": self.store.name,
             "device": str(self.device),
         }
+        if self._draft is not None:
+            out["draft"] = getattr(self._draft, "name", "draft")
+            out["draft_len"] = self.draft_len
+        return out

@@ -34,11 +34,20 @@ lowest lane (deadline-less requests), 2 also clamps ``max_new_tokens``
 of new submissions, 3 also evicts cached pages each tick.  Up at once,
 down one level per ``hysteresis_ticks`` calm ticks.
 
+TRACING.  A supervised generation is one rpcz trace: the trace context
+is captured at ``submit`` (the RPC server's span), and each engine
+attempt gets a ``generation`` span in it; a post-crash attempt links its
+predecessor through ``recovered_from`` and annotates the resume cursor
+and the re-decoded tokens, and the pre-crash decode span closes at the
+takeover with ELOGOFF.  The engine's decode and prefill spans nest
+under the attempt's span.  The state, engine hand-off and per-request
+locks are named (``supervisor.*``).
+
 ``submit`` has the DecodeEngine's signature, so a supervisor drops into
 ``register_serving(engine=...)`` unchanged.  The engine and the batcher
 compute on their own devices; the supervisor runs on the host.  Left
 out (ROADMAP): quarantine through the channel-level circuit breaker, so
-``endpoint`` must be None; rpcz generation spans.
+``endpoint`` must be None.
 """
 from __future__ import annotations
 
@@ -49,7 +58,8 @@ import threading
 import time
 from typing import Callable, Optional, Sequence
 
-from .. import errors
+from .. import errors, rpcz
+from ..butil.lockprof import InstrumentedLock
 from ..bvar import Adder, PassiveStatus
 from ..bvar.variable import exposed_variables, find_exposed
 from .ladder import OverloadLadder
@@ -72,7 +82,8 @@ class _SupReq:
 
     __slots__ = ("sid", "prompt", "max_new_tokens", "user_emit",
                  "user_done", "emitted", "restarts", "finished", "pin",
-                 "resumed", "mu", "delivery_mu", "speculative")
+                 "resumed", "trace", "attempt_span", "last_span_id",
+                 "t_start", "mu", "delivery_mu", "speculative")
 
     def __init__(self, prompt, max_new_tokens, emit, on_done,
                  speculative: bool = True):
@@ -86,16 +97,22 @@ class _SupReq:
         self.restarts = 0
         self.finished = False
         self.pin = None                # RecoveryPin while re-admitting
+        # the trace captured here stays across restarts, so every
+        # attempt's span shares one trace_id; each links its predecessor
+        self.trace = rpcz.current_trace_ctx()
+        self.attempt_span = rpcz.NULL_SPAN   # the current attempt's
+        self.last_span_id = 0                # the previous attempt's
+        self.t_start = time.monotonic()
         # True between a re-admission and its first token: tells the NEW
         # engine's first token (recovery proven: release the pin, stamp
         # the time to recover) from pre-crash tokens still flushing out
         # of the old emitter
         self.resumed = False
-        self.mu = threading.Lock()
+        self.mu = InstrumentedLock("supervisor.request")
         # serialises token delivery against the terminal: user_done waits
         # for an in-flight user_emit, and no token follows it.  Never
         # held with `mu` during a user callback; always taken FIRST.
-        self.delivery_mu = threading.Lock()
+        self.delivery_mu = InstrumentedLock("supervisor.delivery")
 
 
 class EngineSupervisor:
@@ -140,7 +157,7 @@ class EngineSupervisor:
         self._restart_times: list[float] = []
         self._await_first_token_t: Optional[float] = None
 
-        self._mu = threading.Lock()
+        self._mu = InstrumentedLock("supervisor.state")
         self._live: dict[int, _SupReq] = {}      # sid -> request
         self._by_rid: dict[int, _SupReq] = {}    # engine req_id -> request
         self._closing = False
@@ -159,7 +176,8 @@ class EngineSupervisor:
 
         # the engine hand-off: _engine is None while a rebuild is in
         # flight, and re-admissions wait on the condition
-        self._ecv = threading.Condition(threading.Lock())
+        self._ecv = threading.Condition(
+            InstrumentedLock("supervisor.engine"))
         self._wake = threading.Event()
         self._running = True
         self._engine = self._build_engine()
@@ -241,18 +259,78 @@ class EngineSupervisor:
                 errors.EINTERNAL,
                 "supervisor gave up rebuilding the engine"))
             return False
-        with sreq.mu:
-            sreq.resumed = sreq.restarts > 0
         # resume prompt = original + emitted: admission hits the pages
         # detach() committed, and decode restarts from the exact (token,
         # position) the crashed loop would have used next
-        rid = eng.submit(sreq.prompt + emitted, remaining,
+        resume_prompt = sreq.prompt + emitted
+        ctx = self._open_attempt_span(sreq, resume_prompt, remaining,
+                                      len(emitted))
+        with sreq.mu:
+            sreq.resumed = sreq.restarts > 0
+        rid = eng.submit(resume_prompt, remaining,
                          lambda tok, s=sreq: self._emit(s, tok),
                          lambda err, s=sreq: self._req_done(s, err),
-                         clamp=False, speculative=sreq.speculative)
+                         clamp=False, trace_ctx=ctx,
+                         speculative=sreq.speculative)
         with self._mu:
             self._by_rid[rid] = sreq
         return True
+
+    # ---- generation tracing ----
+
+    def _open_attempt_span(self, sreq: _SupReq, resume_prompt,
+                           remaining: int, cursor: int) -> tuple:
+        """One ``generation`` span per engine attempt, all in the trace
+        captured at submit (made stable by the first attempt); a
+        post-crash attempt links its predecessor (``recovered_from``)
+        and annotates the resume cursor and the re-decoded tokens.
+        Returns the trace context for the engine, so the attempt's
+        decode and prefill spans nest under it."""
+        with sreq.mu:
+            tid, psid, smp = sreq.trace
+            restarts = sreq.restarts
+            last_sid = sreq.last_span_id
+        span = rpcz.new_span("generation", "Serving", self.name,
+                             trace_id=tid, parent_span_id=psid,
+                             sampled=smp if tid else None)
+        if span is rpcz.NULL_SPAN:
+            return (tid, psid, smp)
+        if restarts:
+            span.recovered_from = last_sid
+            span.annotate(
+                f"recovered_from=span {last_sid}: restart {restarts}, "
+                f"resume_cursor={cursor} tokens already emitted, "
+                f"{remaining} remaining")
+            if self.store is not None:
+                # the committed prefix the resume prompt hits (advisory
+                # probe): the rest is what this recovery re-decodes
+                hit = int(self.store.probe(resume_prompt))
+                span.annotate(
+                    f"re_decoded_tokens={len(resume_prompt) - hit} "
+                    f"(committed prefix hit={hit} of "
+                    f"{len(resume_prompt)})")
+        with sreq.mu:
+            sreq.attempt_span = span
+            sreq.last_span_id = span.span_id
+            if not tid:
+                # the first attempt rooted the trace: later attempts
+                # must reuse it
+                sreq.trace = (span.trace_id, psid, span.sampled)
+        return (span.trace_id, span.span_id, span.sampled)
+
+    def _close_attempt_span(self, sreq: _SupReq, err,
+                            note: Optional[str] = None) -> None:
+        """Submit the current attempt's span exactly once (the swap to
+        NULL_SPAN under the lock is the guard)."""
+        with sreq.mu:
+            span, sreq.attempt_span = sreq.attempt_span, rpcz.NULL_SPAN
+        if span is rpcz.NULL_SPAN:
+            return
+        if err is not None:
+            span.error_code = err.code
+        if note:
+            span.annotate(note)
+        rpcz.submit(span)
 
     # ---- per-request plumbing ----
 
@@ -267,14 +345,18 @@ class EngineSupervisor:
                 first_resumed = sreq.resumed
                 sreq.resumed = False
                 pin = None
+                aspan = rpcz.NULL_SPAN
                 if first_resumed:
                     # from the REBUILT engine, whose admission holds its
                     # own refs: the recovery pin has done its job (a
                     # pre-crash token flushing from the old emitter
                     # proves nothing and keeps it held)
                     pin, sreq.pin = sreq.pin, None
+                    aspan = sreq.attempt_span
             if pin is not None:
                 pin.release()
+            aspan.annotate("first post-recovery token delivered "
+                           "(recovery pin released)")
             if first_resumed:
                 t0 = self._await_first_token_t
                 if t0 is not None:
@@ -296,6 +378,9 @@ class EngineSupervisor:
                 give_up = sreq.restarts > self.max_restarts
                 resumed = len(sreq.emitted)
             if not give_up:
+                self._close_attempt_span(
+                    sreq, err, "engine died mid-decode; re-admitting "
+                    "after the emitted cursor")
                 self.readmitted.add(1)
                 self.resumed_tokens.add(resumed)
                 self._submit_to_engine(sreq)
@@ -315,6 +400,21 @@ class EngineSupervisor:
                 pin.release()
             with self._mu:
                 self._live.pop(sreq.sid, None)
+            self._close_attempt_span(sreq, err)
+            with sreq.mu:
+                emitted = len(sreq.emitted)
+                restarts = sreq.restarts
+            from . import record_generation
+            record_generation({
+                "supervisor": self.name,
+                "sid": sreq.sid,
+                "trace_id": sreq.trace[0],
+                "prompt_len": len(sreq.prompt),
+                "emitted": emitted,
+                "restarts": restarts,
+                "duration_us": int((time.monotonic() - sreq.t_start) * 1e6),
+                "error_code": err.code if err is not None else 0,
+            })
             if sreq.user_done is not None:
                 try:
                     sreq.user_done(err)
@@ -391,6 +491,14 @@ class EngineSupervisor:
                             old_pin.release()
                     else:
                         pin.release()   # nobody to re-admit
+            # the pre-crash decode span ends HERE (the slot never retires
+            # through the dead engine), inside the generation's trace
+            if slot.span is not rpcz.NULL_SPAN:
+                slot.span.error_code = errors.ELOGOFF
+                slot.span.annotate(
+                    f"engine takeover: {reason}; {slot.generated} "
+                    f"tokens decoded pre-crash")
+                rpcz.submit(slot.span)
             # the old emitter flushes every buffered token (the cursor
             # counts them: they are NOT re-decoded), then the restart
             # marker, whose _req_done re-admits the request; the

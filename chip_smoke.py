@@ -92,7 +92,25 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      client-timed latency per wire, detect-to-rebuild and
      crash-to-first-resumed-token times, tokens/s of the crashed pass
      beside the uncrashed one, and the phase's launches;
-  8. prints ``{"kernels": [...]}``, the card line, and as the LAST line
+  8. host-path phase, the wide configuration, the plain run's weights,
+     prompts and oracle, one ``EngineSupervisor`` behind one ``Server``:
+     the native hot path (``native_hot_path_enabled``: native emit rings,
+     one ``brpc_tokring_push_many`` per step, native page-table fill and
+     batch pad, the native span queue) on and off in alternating pairs,
+     direct (in-process submits) and over RPC (tokens/s and mean step
+     of each pass, per-stage host CPU per token from ``hostcpu``);
+     Score (16 ScoreT rows a pass, a fresh batcher each) with the flag on
+     and off (rows/s, the batcher's batch-time EMA); rpcz on: one traced
+     Generate (client -> server -> generation -> decode with its KV
+     annotations -> prefill, one trace) and one traced Score (its batch
+     span's queue delay), passes with rpcz on and off, and a supervised
+     pass with a ``serving.step`` crash whose every stream's two
+     attempts share its trace (``recovered_from``); the top 5 locks by
+     wait time, no lock-order violation (the witness); every stream the
+     oracle's, every row the unbatched forward's;
+  9. after every serving phase, no native emit ring alive beyond the
+     baseline (``native_path.tokring_live``); prints ``{"kernels":
+     [...]}``, the card line, and as the LAST line
      ``{"ok": true, "device": {...}}``.
 
 Any failed check, build or launch exits non-zero before the result.
@@ -122,7 +140,10 @@ RATE = {"bytes": "HBM 3.35 TB/s",
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 NEW_TOKENS = 32
 N_REQUESTS = 8
-RPC_PAIRS = 10       # warm passes over RPC and direct, in alternating order
+RPC_PAIRS = 6        # warm passes over RPC and direct, in alternating order
+HOST_PAIRS = 6       # native hot path on/off pairs, direct and over RPC
+SCORE_PAIRS = 3      # Score passes with the native hot path on and off
+TRACE_PAIRS = 3      # passes with rpcz on and off
 SCORE_T_CALLS = 32   # concurrent ScoreT calls of the control-plane phase
 SCORE_JSON_CALLS = 8
 # ladder thresholds no burst of the control-plane phase can cross: its
@@ -557,7 +578,7 @@ def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
         t0 = time.perf_counter()
         cold = run_all()
         t_cold = time.perf_counter() - t0
-        steps_cold = engine.steps
+        steps_cold = engine.steps.get_value()
         step_s_cold = engine.step_seconds
         hit0 = store.hit_tokens
         t0 = time.perf_counter()
@@ -720,13 +741,16 @@ def pct(xs, q):
         if len(xs) else None
 
 
-def rpc_generate_all(port, prompts, label, extra=None):
+def rpc_generate_all(port, prompts, label, extra=None, roots=None):
     """One ``Serving.Generate`` per prompt, all issued at once through
     the port's Channel, each with its own token stream; the client
-    stamps each call's issue and each token's arrival.  Returns the
-    streams, their ``prefix_hit``s, the client-timed time to first token
-    and inter-token gaps (seconds), and the wall time."""
+    stamps each call's issue and each token's arrival.  With ``roots``
+    (a list), each call is issued under a fresh rpcz client span, which
+    is appended to it.  Returns the streams, their ``prefix_hit``s, the
+    client-timed time to first token and inter-token gaps (seconds), and
+    the wall time."""
     import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.rpcz as rpcz
 
     class Stream(rpc.StreamHandler):
         def __init__(self):
@@ -761,8 +785,15 @@ def rpc_generate_all(port, prompts, label, extra=None):
         body = {"prompt": p, "max_new_tokens": NEW_TOKENS,
                 **((extra or {}).get(i, {}))}
         rec.t_issue = time.perf_counter()
-        ch.call("Serving", "Generate", body, cntl=cntl, done=rec.on_response,
-                serializer="json")
+        if roots is not None:
+            roots.append(rpcz.new_span("client", "Serving", "Generate"))
+            rpcz.set_current_span(roots[-1])
+        try:
+            ch.call("Serving", "Generate", body, cntl=cntl,
+                    done=rec.on_response, serializer="json")
+        finally:
+            if roots is not None:
+                rpcz.set_current_span(None)
         recs.append(rec)
     for i, rec in enumerate(recs):
         check(rec.answered.wait(300) and rec.closed.wait(300),
@@ -772,6 +803,8 @@ def rpc_generate_all(port, prompts, label, extra=None):
         check(rec.terminal == {"done": True},
               f"{label}: stream {i} ended with {rec.terminal}")
     wall = time.perf_counter() - t0
+    for root in roots or ():
+        rpcz.submit(root)
     ttft = [r.arrivals[0] - r.t_issue for r in recs if r.arrivals]
     gaps = [b - a for r in recs for a, b in zip(r.arrivals, r.arrivals[1:])]
     return ([r.toks for r in recs], [r.resp["prefix_hit"] for r in recs],
@@ -879,7 +912,7 @@ def serve_rpc(dev, cfg, ctx, card):
         paired = {"rpc": [], "direct": []}
         for i in range(RPC_PAIRS):
             for kind in ("rpc", "direct") if i % 2 else ("direct", "rpc"):
-                steps0, sec0 = engine.steps, engine.step_seconds
+                steps0, sec0 = engine.steps.get_value(), engine.step_seconds
                 t0 = time.perf_counter()
                 if kind == "rpc":
                     streams = rpc_generate_all(server.port, prompts,
@@ -889,7 +922,7 @@ def serve_rpc(dev, cfg, ctx, card):
                 t = time.perf_counter() - t0
                 paired[kind].append(
                     (streams, toks / t, 1e3 * (engine.step_seconds - sec0)
-                     / max(1, engine.steps - steps0)))
+                     / max(1, engine.steps.get_value() - steps0)))
     finally:
         shut("b rpc", server, engine, store, free0)
     # the speculative engine behind its own Serving service
@@ -1314,6 +1347,335 @@ def serve_control(dev, cfg, ctx, card):
     }
 
 
+# ---- host-path phase: the native hot path, rpcz, locks, host CPU ---------
+
+def check_rings(label, base):
+    """No native emit ring outlives its request: the port core's live
+    count back at ``base`` (emitter threads may still be unwinding)."""
+    import gc
+    import brpc_tpu_torch.native_path as native_path
+    deadline = time.monotonic() + 10
+    while True:
+        gc.collect()
+        live = native_path.tokring_live()
+        if live == base or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    check(live == base, f"{label}: {live - base} native emit rings leaked")
+
+
+class SwapBatcher:
+    """The batcher the Serving service sees: each Score pass installs a
+    fresh DynamicBatcher, so a pass's batch-time EMA is its own."""
+
+    def __init__(self):
+        self.current = None
+
+    def submit(self, cntl, item, transform=None):
+        return self.current.submit(cntl, item, transform)
+
+
+def trace_shape(spans, root):
+    """Check one traced Generate: client root -> server -> generation ->
+    decode (KV annotations) -> prefill, all in the root's trace.
+    Returns the span count per kind."""
+    by_kind = {}
+    for s in spans:
+        check(s.trace_id == root.trace_id, "a span left the trace")
+        by_kind.setdefault(s.kind, []).append(s)
+    server = by_kind.get("server", [None])[0]
+    gen = by_kind.get("generation", [None])[0]
+    decode = by_kind.get("decode", [None])[0]
+    prefill = by_kind.get("prefill", [None])[0]
+    check(None not in (server, gen, decode, prefill),
+          f"b host traced generate: kinds {sorted(by_kind)}")
+    check(server.parent_span_id == root.span_id
+          and gen.parent_span_id == server.span_id
+          and decode.parent_span_id == gen.span_id
+          and prefill.parent_span_id == decode.span_id,
+          "b host traced generate: the span tree is not client -> server "
+          "-> generation -> decode -> prefill")
+    notes = " | ".join(m for _, m in decode.annotations)
+    for want in ("kv admit:", "first token:", "retired:"):
+        check(want in notes, f"b host traced generate: decode span lacks "
+                             f"{want!r}: {notes}")
+    return {k: len(v) for k, v in sorted(by_kind.items())}
+
+
+def serve_host_path(dev, cfg, ctx, card):
+    """Step 8 (see the module docstring): the host path of (b) under the
+    reference's default native hot path and with it off, rpcz, the lock
+    ledger and host-CPU accounting."""
+    import brpc_tpu_torch.flags as flags
+    import brpc_tpu_torch.fault as fault
+    import brpc_tpu_torch.models as models
+    import brpc_tpu_torch.native_path as native_path
+    import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.rpcz as rpcz
+    import brpc_tpu_torch.serving as serving
+    from brpc_tpu_torch import errors
+    from brpc_tpu_torch.butil import hostcpu, lockprof
+    geo, prompts, oracle = ctx["geometry"], ctx["prompts"], ctx["oracle"]
+    params = ctx["params"]
+    toks = N_REQUESTS * NEW_TOKENS
+    counts = Counts()
+    want = [unbatched_ids(params, cfg, dev, p) for p in prompts]
+    rings0 = native_path.tokring_live()
+    waits0 = {n: r["wait_total_us"]
+              for n, r in lockprof.locks_snapshot().items()}
+    label = "b host"
+
+    def held(label, streams):
+        for i, (c, o) in enumerate(zip(streams, oracle)):
+            check(c == o, f"{label}: stream {i} streamed {c}, dense oracle "
+                          f"{o}")
+
+    def factory():
+        runner = models.TransformerRunner(params, cfg, store=store,
+                                          device=dev, name=label)
+        return serving.DecodeEngine(
+            runner=runner, store=store, num_slots=geo["num_slots"],
+            max_pages_per_slot=geo["max_pages"],
+            prefill_buckets=geo["buckets"], device=dev, name="b_host")
+
+    def set_native(on):
+        check(flags.set_flag("native_hot_path_enabled", on),
+              "the native hot path flag is not reloadable")
+
+    store = models.make_store_for(cfg, page_tokens=geo["page_tokens"],
+                                  max_blocks=geo["max_blocks"], device=dev,
+                                  name=label)
+    free0 = store.pagepool.pool.stats()["classes"]
+    score_runner = models.TransformerRunner(params, cfg, device=dev,
+                                            name="b host score")
+    swap = SwapBatcher()
+    sup = serving.EngineSupervisor(
+        factory, store=store, heartbeat_deadline_s=30.0,
+        check_interval_s=0.02, ladder=CALM_LADDER, name="b_host")
+    server = rpc.Server()
+    serving.register_serving(server, batcher=swap, engine=sup)
+    server.start("127.0.0.1", 0)
+    port = server.port
+    try:
+        held("b host cold", counts.window(
+            lambda: generate_all(sup, prompts, "b host cold")))
+        # -- native hot path on and off, in alternating pairs, direct
+        # (in-process submits) and over RPC, on one supervised engine
+        pairs = {via: {"on": [], "off": []} for via in ("direct", "rpc")}
+        cpu = {via: {"on": {}, "off": {}} for via in ("direct", "rpc")}
+        for via in ("direct", "rpc"):
+            for i in range(HOST_PAIRS):
+                for on in (True, False) if i % 2 == 0 else (False, True):
+                    set_native(on)
+                    eng = sup.engine
+                    steps0, sec0 = eng.steps.get_value(), eng.step_seconds
+                    h0 = hostcpu.snapshot()
+                    t0 = time.perf_counter()
+                    if via == "direct":
+                        streams = counts.window(lambda: generate_all(
+                            sup, prompts, "b host direct"))
+                    else:
+                        streams = counts.window(lambda: rpc_generate_all(
+                            port, prompts, "b host rpc")[0])
+                    t = time.perf_counter() - t0
+                    h1 = hostcpu.snapshot()
+                    held(f"b host {via} flag {on}", streams)
+                    key = "on" if on else "off"
+                    pairs[via][key].append(
+                        (toks / t, 1e3 * (eng.step_seconds - sec0)
+                         / max(1, eng.steps.get_value() - steps0)))
+                    acc = cpu[via][key]
+                    for stage, us in h1["per_stage_us"].items():
+                        acc[stage] = acc.get(stage, 0) + us \
+                            - h0["per_stage_us"][stage]
+                    acc["tokens"] = acc.get("tokens", 0) + h1["tokens"] \
+                        - h0["tokens"]
+        set_native(True)
+        # the crash below replaces this engine; a reference held here
+        # would keep its crash's traceback, and the requests in it, alive
+        del eng
+        hostcpu_us_per_token = {
+            via: {key: {stage: us / max(1, acc["tokens"])
+                        for stage, us in acc.items() if stage != "tokens"}
+                  for key, acc in per.items()}
+            for via, per in cpu.items()}
+
+        def pair_stats(rows):
+            out = {"on_ahead": 0}
+            for k, metric in enumerate(("tokens_per_s", "step_ms")):
+                vals = {key: [r[k] for r in rows[key]] for key in rows}
+                out[metric] = vals
+                out[metric + "_median"] = {key: pct(v, 50)
+                                           for key, v in vals.items()}
+                out[metric + "_quartiles"] = {
+                    key: [pct(v, 25), pct(v, 75)]
+                    for key, v in vals.items()}
+            ratios = [a / b for a, b in zip(out["tokens_per_s"]["on"],
+                                            out["tokens_per_s"]["off"])]
+            out["on_over_off_quartiles"] = [pct(ratios, q)
+                                            for q in (25, 50, 75)]
+            out["on_ahead"] = sum(r > 1 for r in ratios)
+            return out
+
+        flag_pairs = {via: pair_stats(rows) for via, rows in pairs.items()}
+        # -- Score with the flag on and off: 16 ScoreT rows a pass, a
+        # fresh batcher per pass (its batch-time EMA is the pass's own)
+        score = {"on": [], "off": []}
+        for i in range(SCORE_PAIRS):
+            for on in (True, False) if i % 2 == 0 else (False, True):
+                set_native(on)
+                swap.current = serving.DynamicBatcher(
+                    score_runner, max_batch_size=8, max_delay_us=5000,
+                    length_buckets=(64, 256), dtype=np.int32,
+                    name="b_host_score")
+                try:
+                    rows, _, wall = counts.window(lambda: score_calls(
+                        port, prompts, 2 * N_REQUESTS, 0, "b host score"))
+                    bst = swap.current.stats()
+                finally:
+                    swap.current.close()
+                hold_rows(f"b host score flag {on}", rows, want)
+                score["on" if on else "off"].append(
+                    {"rows_per_s": len(rows) / wall,
+                     "exec_ema_ms": bst["exec_ema_ms"],
+                     "batches": bst["batches"]})
+        set_native(True)
+        score_medians = {
+            k: {"rows_per_s": pct([r["rows_per_s"] for r in v], 50),
+                "exec_ema_ms": pct([r["exec_ema_ms"] for r in v], 50)}
+            for k, v in score.items()}
+        # -- rpcz on: one traced Generate, one traced Score
+        rpcz.set_enabled(True)
+        roots = []
+        held("b host traced", counts.window(lambda: rpc_generate_all(
+            port, prompts[:1], "b host traced", roots=roots)[0]))
+        check(sup.join_idle(30), "b host: the supervisor did not go idle")
+        gen_spans = rpcz.recent_spans(limit=2048,
+                                      trace_id=roots[0].trace_id)
+        span_kinds = trace_shape(gen_spans, roots[0])
+        gen_tree = [f"{'  ' * depth}{sp.kind} {sp.service}.{sp.method}"
+                    for depth, _, sp in rpcz.trace_tree(gen_spans)]
+        swap.current = serving.DynamicBatcher(
+            score_runner, max_batch_size=8, max_delay_us=5000,
+            length_buckets=(64, 256), dtype=np.int32, name="b_host_score")
+        try:
+            sroot = rpcz.new_span("client", "Serving", "ScoreT")
+            rpcz.set_current_span(sroot)
+            try:
+                y = counts.window(lambda: serving.ScoreClient(rpc.Channel(
+                    f"127.0.0.1:{port}", timeout_ms=120_000)).score(
+                        np.asarray(prompts[0], np.float32)))
+            finally:
+                rpcz.set_current_span(None)
+            rpcz.submit(sroot)
+        finally:
+            swap.current.close()
+        hold_rows("b host traced score", [(0, y)], want)
+        score_spans = rpcz.recent_spans(limit=2048, trace_id=sroot.trace_id)
+        sserver = [s for s in score_spans if s.kind == "server"]
+        batch = [s for s in score_spans if s.kind == "batch"]
+        check(len(sserver) == 1 and len(batch) == 1
+              and sserver[0].parent_span_id == sroot.span_id
+              and batch[0].parent_span_id == sserver[0].span_id
+              and any("queue_delay_us=" in m
+                      for _, m in batch[0].annotations),
+              f"b host traced score: {[(s.kind, s.annotations) for s in score_spans]}")
+        for s in score_spans:
+            span_kinds["score " + s.kind] = \
+                span_kinds.get("score " + s.kind, 0) + 1
+        # what tracing costs: RPC passes with rpcz on and off, in turns
+        traced = {"on": [], "off": []}
+        for i in range(TRACE_PAIRS):
+            for on in (True, False) if i % 2 == 0 else (False, True):
+                rpcz.set_enabled(on)
+                streams, _, _, _, wall = counts.window(
+                    lambda: rpc_generate_all(port, prompts, "b host trace"))
+                held(f"b host rpcz {on}", streams)
+                traced["on" if on else "off"].append(toks / wall)
+        # one supervised pass with a step crash, every stream traced: the
+        # two attempts of each generation share its trace
+        rpcz.set_enabled(True)
+        roots = []
+        plan = fault.FaultPlan(9).on(fault.STEP, fault.ERROR, times=1,
+                                     after=8)
+        with fault.injected(plan):
+            streams, _, _, _, t_crash = counts.window(
+                lambda: rpc_generate_all(port, prompts, "b host crash",
+                                         roots=roots))
+        held("b host crash", streams)
+        check(sup.join_idle(60), "b host crash: the supervisor did not go "
+                                 "idle")
+        check(plan.injected.get(fault.STEP) == 1 and
+              sup.stats()["restarts"] == 1,
+              f"b host crash: fault {plan.injected}, restarts "
+              f"{sup.stats()['restarts']}")
+        # every re-admitted generation: both attempts (and both decode
+        # spans) in its trace, the second linked to the first
+        readmitted = sup.stats()["readmitted"]
+        linked = 0
+        for root in roots:
+            spans = rpcz.recent_spans(limit=2048, trace_id=root.trace_id)
+            gens = sorted((s for s in spans if s.kind == "generation"),
+                          key=lambda s: s.span_id)
+            decodes = [s for s in spans if s.kind == "decode"]
+            if len(gens) >= 2:
+                check(gens[1].recovered_from == gens[0].span_id
+                      and len(decodes) >= 2
+                      and any(d.error_code == errors.ELOGOFF
+                              for d in decodes),
+                      f"b host crash: trace {root.trace_id}'s attempts "
+                      f"are not linked")
+                linked += 1
+        check(readmitted > 0 and linked == readmitted,
+              f"b host crash: {linked} linked traces, {readmitted} "
+              f"re-admitted generations")
+        rpcz.set_enabled(False)
+        check(sup.join_idle(30), "b host: the supervisor did not go idle")
+        live = store.stats()["live_seqs"]
+        check(live == 0, f"b host: {live} sequences still live")
+    finally:
+        rpcz.set_enabled(False)
+        set_native(True)
+        server.stop()
+        server.join()
+        sup.close()
+        store.clear()
+    check(store.pagepool.blocks_leased() == 0 and
+          store.pagepool.pool.stats()["classes"] == free0,
+          "b host: the page pool did not return to its baseline")
+    check_rings("b host", rings0)
+    violations = lockprof.order_violations()
+    check(not violations, "lock-order violations:\n"
+                          + lockprof.witness_report())
+    waits = []
+    for name, row in lockprof.locks_snapshot().items():
+        waits.append({"lock": name,
+                      "wait_us": row["wait_total_us"] - waits0.get(name, 0),
+                      "contentions": row["contentions"],
+                      "acquisitions": row["acquisitions"],
+                      "wait_p99_us": row["wait_p99_us"],
+                      "hold_p99_us": row["hold_p99_us"]})
+    waits.sort(key=lambda r: r["wait_us"], reverse=True)
+    check(counts.paged > 0 and counts.paged_cuda == 2 * counts.paged
+          and counts.flash > 0,
+          f"b host: {counts.paged} paged calls ({counts.paged_cuda} CUDA), "
+          f"{counts.flash} flash calls")
+    return {
+        "config": "b host", "card": card, "requests": N_REQUESTS,
+        "new_tokens": NEW_TOKENS, "flag_pairs": flag_pairs,
+        "hostcpu_us_per_token": hostcpu_us_per_token,
+        "score": score, "score_medians": score_medians,
+        "span_kinds": span_kinds, "generate_tree": gen_tree,
+        "traced_tokens_per_s": traced,
+        "traced_tokens_per_s_median": {k: pct(v, 50)
+                                       for k, v in traced.items()},
+        "crash_tokens_per_s": toks / t_crash,
+        "crash_traces_linked": linked,
+        "top_lock_waits": waits[:5], "lock_order_violations": 0,
+        "launches": counts.as_dict(), "paged_cuda_launches": counts.paged_cuda,
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1348,7 +1710,7 @@ def main() -> int:
         except Exception as e:           # re-raised below, on this thread
             native["error"] = e
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     native_thread = threading.Thread(target=build_native)
     native_thread.start()
     kbuild.build()
@@ -1358,6 +1720,8 @@ def main() -> int:
         raise SmokeError(f"native core build failed: {native['error']}")
     print(f"native core: {native['dir']} built in "
           f"{cbuild.build_seconds} s", flush=True)
+    import brpc_tpu_torch.native_path as native_path
+    rings0 = native_path.tokring_live()
     ptxas = {}
     for name in kbuild.SOURCES:
         log = kbuild.log_path(name)
@@ -1375,6 +1739,16 @@ def main() -> int:
                                      n_heads=8, n_kv_heads=4, head_dim=128,
                                      d_ff=4096)
     # -- kernel phase, at the serving path's shapes
+    # wall seconds of each phase: what each costs the script
+    phase_s = {"build": time.perf_counter() - t_start}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        t_phase = now
+
     paged = [
         run_paged(dev, "a decode N4 MP32 T4 +self", cfg_a, page_tokens=4,
                   n=4, mp=32, prefill=False, extra="self_key", seed=1,
@@ -1428,6 +1802,7 @@ def main() -> int:
               f"bound, {row['cuda_launches_per_call']} CUDA launches/call",
               flush=True)
 
+    phase_done("kernels")
     # -- serving phase, twice
     _, served_a = serve(dev, "a", cfg_a, page_tokens=4, num_slots=4,
                         max_pages=32, max_blocks=32, prompt_len=64,
@@ -1435,6 +1810,8 @@ def main() -> int:
     ctx_b, served_b = serve(dev, "b", cfg_b, page_tokens=16, num_slots=8,
                             max_pages=16, max_blocks=64, prompt_len=200,
                             buckets=(16, 64, 256), seed=12)
+    check_rings("serve a, b", rings0)
+    phase_done("serve a, b")
     served = [served_a, served_b]
     for r in served:
         print(f"serve {r['config']}: cold {r['cold_tokens_per_s']:.1f} tok/s"
@@ -1455,6 +1832,8 @@ def main() -> int:
                    spec.DraftModelProposer(ctx_b["params"], cfg_b, width=2),
                    draft_len=4),
     ]
+    check_rings("serve spec", rings0)
+    phase_done("serve spec")
     drafted = speculative[1]
     check(drafted["tokens_per_verify"] > 1,
           f"draft model: {drafted['tokens_per_verify']} tokens per verify")
@@ -1481,6 +1860,8 @@ def main() -> int:
 
     # -- RPC serving phase: (b) behind Serving.Generate on the port's server
     served_rpc = serve_rpc(dev, cfg_b, ctx_b, card)
+    check_rings("serve rpc", rings0)
+    phase_done("serve rpc")
     r = served_rpc
     print(f"serve b rpc [{card}]: cold {r['cold_tokens_per_s']:.1f} tok/s, "
           f"warm {r['warm_tokens_per_s']:.1f} tok/s (client in its own "
@@ -1500,6 +1881,8 @@ def main() -> int:
 
     # -- control-plane phase: Score through the batcher, the supervisor
     served_control = serve_control(dev, cfg_b, ctx_b, card)
+    check_rings("serve control", rings0)
+    phase_done("serve control")
     r = served_control
     sc, cr, cs = r["score"], r["crashed"], r["crashed_spec"]
     print(f"serve b control [{card}]: score {sc['rows']} rows in "
@@ -1524,11 +1907,49 @@ def main() -> int:
           f"{json.dumps(r['brownout'])}; launches {r['launches']} "
           f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
 
+    # -- host-path phase: the native hot path on and off, rpcz, locks
+    served_host = serve_host_path(dev, cfg_b, ctx_b, card)
+    phase_done("serve host path")
+    r = served_host
+    fp, sm = r["flag_pairs"], r["score_medians"]
+    print(f"serve b host [{card}]: native hot path on/off, {HOST_PAIRS} "
+          f"alternating pairs each: direct median tok/s "
+          f"{json.dumps(fp['direct']['tokens_per_s_median'])} quartiles "
+          f"{json.dumps(fp['direct']['tokens_per_s_quartiles'])} median "
+          f"step ms {json.dumps(fp['direct']['step_ms_median'])} quartiles "
+          f"{json.dumps(fp['direct']['step_ms_quartiles'])} on/off "
+          f"quartiles {json.dumps(fp['direct']['on_over_off_quartiles'])} "
+          f"on ahead {fp['direct']['on_ahead']}; rpc median tok/s "
+          f"{json.dumps(fp['rpc']['tokens_per_s_median'])} quartiles "
+          f"{json.dumps(fp['rpc']['tokens_per_s_quartiles'])} median step "
+          f"ms {json.dumps(fp['rpc']['step_ms_median'])} quartiles "
+          f"{json.dumps(fp['rpc']['step_ms_quartiles'])} on/off quartiles "
+          f"{json.dumps(fp['rpc']['on_over_off_quartiles'])} on ahead "
+          f"{fp['rpc']['on_ahead']}", flush=True)
+    print(f"serve b host score [{card}]: {SCORE_PAIRS} pairs, median "
+          f"rows/s and batch time EMA ms by flag {json.dumps(sm)}",
+          flush=True)
+    print(f"serve b host rpcz [{card}]: traced Generate "
+          f"{json.dumps(r['generate_tree'])}; span kinds "
+          f"{json.dumps(r['span_kinds'])}; tok/s rpcz on/off medians "
+          f"{json.dumps(r['traced_tokens_per_s_median'])} (all "
+          f"{json.dumps(r['traced_tokens_per_s'])}); crashed pass "
+          f"{r['crash_tokens_per_s']:.1f} tok/s, {r['crash_traces_linked']} "
+          f"traces with both attempts linked", flush=True)
+    print(f"serve b host hostcpu [{card}]: us per token by stage "
+          f"{json.dumps(r['hostcpu_us_per_token'])}", flush=True)
+    print(f"serve b host locks [{card}]: top 5 by wait "
+          f"{json.dumps(r['top_lock_waits'])}; lock-order violations 0; "
+          f"launches {r['launches']} ({r['paged_cuda_launches']} paged "
+          f"CUDA)", flush=True)
+    print(f"phase seconds [{card}]: {json.dumps(phase_s)}", flush=True)
+
     def entry(name, source, replaces, rows, main_row):
         m = rows[main_row]
         err = max(r["max_abs_err"] for r in rows)
         launches = sum(r["launches"][name] for r in
-                       served + speculative + [served_rpc, served_control])
+                       served + speculative + [served_rpc, served_control,
+                                               served_host])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "max_abs_diff": err,
@@ -1553,6 +1974,7 @@ def main() -> int:
               "ptxas": ptxas, "sass": sass, "kernels": kernels,
               "serving": served, "speculative": speculative,
               "rpc_serving": served_rpc, "control_serving": served_control,
+              "host_path_serving": served_host, "phase_s": phase_s,
               "native_build_s": cbuild.build_seconds,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,
