@@ -65,6 +65,7 @@ _SIGS = {
                                              ctypes.c_size_t,
                                              ctypes.c_void_p]),
     "brpc_socket_set_failed": (ctypes.c_int, [ctypes.c_uint64, ctypes.c_int]),
+    "brpc_socket_alive": (ctypes.c_int, [ctypes.c_uint64]),
     "brpc_register_python_method": (None, [ctypes.c_char_p,
                                            ctypes.c_char_p]),
     "brpc_unregister_method": (ctypes.c_int, [ctypes.c_char_p,

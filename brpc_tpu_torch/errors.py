@@ -13,6 +13,7 @@ import os
 ENOSERVICE = 1001        # service not found
 ENOMETHOD = 1002         # method not found
 EREQUEST = 1003          # bad request
+ETOOMANYFAILS = 1005     # too many sub-channel failures (ParallelChannel)
 ERPCTIMEDOUT = 1008      # RPC deadline exceeded
 EFAILEDSOCKET = 1009     # the connection broke during the RPC
 EOVERCROWDED = 1011      # too many buffered writes / server overcrowded
@@ -24,6 +25,7 @@ ELOGOFF = 2003           # server is stopping
 ELIMIT = 2004            # concurrency or capacity limit reached
 
 # Locally-originated (client library) codes
+ENODATA = 61             # no server available (empty cluster)
 ECONNREFUSED = 111
 ECANCELED = 125          # call canceled by the caller (StartCancel analog)
 
@@ -31,6 +33,7 @@ _DESCRIPTIONS = {
     ENOSERVICE: "The service was not found",
     ENOMETHOD: "The method was not found",
     EREQUEST: "Bad request",
+    ETOOMANYFAILS: "Too many sub-channel failures",
     ERPCTIMEDOUT: "RPC call timed out",
     EFAILEDSOCKET: "Broken socket during RPC",
     EOVERCROWDED: "The server is overcrowded",

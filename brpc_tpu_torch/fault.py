@@ -1,8 +1,26 @@
 """Deterministic fault injection (a copy of ``brpc_tpu/fault.py``).
 
-Named injection sites in the port's serving code:
+Named injection sites in the port's RPC and serving code:
 
     site               faults
+    transport.connect  refuse, latency  (rpc/transport.py: the connect
+                       raises ConnectionError)
+    transport.send     error, overcrowd, reset, partial, corrupt,
+                       latency  (rpc/transport.py: every frame writer;
+                       reset fails the socket mid-call, partial first
+                       writes a torn frame head)
+    transport.recv     drop, corrupt, latency  (rpc/transport.py: the
+                       messages of the Python trampoline -- stream
+                       frames and full-meta messages; natively
+                       pre-parsed unary requests and responses never
+                       pass it, so lose a unary response at the sender,
+                       transport.send)
+    stream.frame       drop, dup, latency  (rpc/stream.py: a frame
+                       arriving for a local stream; dup redelivers a
+                       sequenced DATA frame, which the reorder layer
+                       must drop)
+    stream.feedback    drop  (rpc/stream.py: a consumed-bytes feedback
+                       frame is lost; credit returns at the next one)
     serving.batch      error  (serving/batcher.py: a mid-batch failure;
                        every member completes with a definite error,
                        never a partial scatter)
@@ -30,8 +48,9 @@ or thread identity::
         ...run traffic...
     assert plan.injected[fault.STEP] == 1
 
-A site interprets a fired fault in its own failure convention; LATENCY
-is applied here (sleep, then proceed).
+A site interprets a fired fault in its own failure convention (an rc
+for the socket writers, ConnectionError for connect); LATENCY is
+applied here (sleep, then proceed).
 
 The port's code and tests name the sites through the constants below
 (the same strings as the JAX package's sites): ``brpc-check``'s
@@ -50,13 +69,27 @@ from typing import Callable, Optional
 
 from .bvar import Adder
 
+CONNECT = "transport.connect"
+SEND = "transport.send"
+RECV = "transport.recv"
+FRAME = "stream.frame"
+FEEDBACK = "stream.feedback"
 BATCH = "serving.batch"
 STEP = "serving.step"
 SPEC_VERIFY = "serving.spec_verify"
 HEARTBEAT = "serving.heartbeat"
 
+REFUSE = "refuse"        # connect: raise ConnectionError
+RESET = "reset"          # send: fail the socket mid-call (ECONNRESET)
 ERROR = "error"          # failure in the site's own convention
+OVERCROWD = "overcrowd"  # send: the native -2 write-queue-bound rc
 LATENCY = "latency"      # sleep latency_s, then proceed (applied here)
+PARTIAL = "partial"      # send: torn prefix on the wire, then socket death
+CORRUPT = "corrupt"      # mangle the payload (the site applies mangle())
+DROP = "drop"            # recv/frame: swallow the message
+DUP = "dup"              # stream frame: deliver twice; only sequenced
+#                          DATA frames duplicate, so scope DUP rules with
+#                          match=... on msg_type/stream_seq
 
 # the fast gate: sites check it before any per-site work; install() and
 # clear() are its only writers
@@ -86,20 +119,22 @@ class Fault:
     site: str
     kind: str
     latency_s: float = 0.0
+    rc: int = -1
 
 
 class _Rule:
-    __slots__ = ("kind", "times", "after", "prob", "latency_s", "match",
-                 "seen", "fired", "rng")
+    __slots__ = ("kind", "times", "after", "prob", "latency_s", "rc",
+                 "match", "seen", "fired", "rng")
 
     def __init__(self, kind: str, times: int, after: int, prob: float,
-                 latency_s: float, match: Optional[Callable[[dict], bool]],
-                 rng_seed: str):
+                 latency_s: float, rc: int,
+                 match: Optional[Callable[[dict], bool]], rng_seed: str):
         self.kind = kind
         self.times = times          # fire at most this many; <0 = forever
         self.after = after          # skip the first `after` matching hits
         self.prob = prob
         self.latency_s = latency_s
+        self.rc = rc                # the rc an ERROR at a writer returns
         self.match = match
         self.seen = 0
         self.fired = 0
@@ -119,7 +154,7 @@ class FaultPlan:
         self.injected: dict[str, int] = {}
 
     def on(self, site: str, kind: str, *, times: int = 1, after: int = 0,
-           prob: float = 1.0, latency_s: float = 0.01,
+           prob: float = 1.0, latency_s: float = 0.01, rc: int = -1,
            match: Optional[Callable[[dict], bool]] = None) -> "FaultPlan":
         """Schedule `kind` at `site`: at most `times` firings (<0:
         forever), after skipping the first `after` matching hits, each
@@ -128,7 +163,7 @@ class FaultPlan:
         with self._mu:
             idx = sum(len(r) for r in self._rules.values())
             self._rules.setdefault(site, []).append(
-                _Rule(kind, times, after, prob, latency_s, match,
+                _Rule(kind, times, after, prob, latency_s, rc, match,
                       f"{self.seed}:{site}:{idx}"))
         return self
 
@@ -146,7 +181,7 @@ class FaultPlan:
                     continue
                 r.fired += 1
                 self.injected[site] = self.injected.get(site, 0) + 1
-                return Fault(site, r.kind, r.latency_s)
+                return Fault(site, r.kind, r.latency_s, r.rc)
         return None
 
 
@@ -189,3 +224,14 @@ def hit(site: str, **ctx) -> Optional[Fault]:
         time.sleep(f.latency_s)
         return None
     return f
+
+
+def mangle(data: bytes) -> bytes:
+    """Deterministically corrupt a payload: flip every bit of the middle
+    byte, enough to break any decode downstream; runs replay exactly."""
+    if not data:
+        return data
+    b = bytearray(data)
+    i = len(b) // 2
+    b[i] ^= 0xFF
+    return bytes(b)

@@ -1,2 +1,3 @@
-"""Admission policies: the concurrency limiters the batcher gates its
-queue with."""
+"""Client and admission policies: load balancers, naming services, the
+health check, the circuit breaker with its cluster recover policy, and
+the concurrency limiters the batcher gates its queue with."""

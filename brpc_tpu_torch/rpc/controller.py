@@ -3,11 +3,12 @@
 A trimmed copy of ``brpc_tpu/rpc/controller.py``: options in (timeout,
 retries, compression, attachment, user fields), results out (error
 code and text, response, attachment), and the call's exactly-once
-completion.  Retries are versioned by the (correlation_id, attempt)
-pair under a completion lock, so a stale attempt can never complete a
-call twice.  Left out with the features they serve: backup requests,
-the load balancer's request code, rpcz trace ids, gRPC headers and
-pooled session data.
+completion.  Retries and backup requests are versioned by the
+(correlation_id, attempt) pair under a completion lock, so a stale
+attempt can never complete a call twice.  ``request_code`` is the
+consistent-hashing key the cluster channel's balancer routes by.  Left
+out with the features they serve: gRPC headers and pooled session
+data.
 """
 from __future__ import annotations
 
@@ -60,12 +61,17 @@ class OneShotEvent:
 class Controller:
     def __init__(self, *, timeout_ms: Optional[int] = None,
                  max_retry: Optional[int] = None,
+                 backup_request_ms: Optional[int] = None,
                  compress_type: int = M.COMPRESS_NONE):
         # ---- client-side options (None = inherit from ChannelOptions) ----
         self.timeout_ms = timeout_ms
         self.max_retry = max_retry
+        self.backup_request_ms = backup_request_ms
         self.compress_type = compress_type
         self.request_attachment: bytes = b""
+        # consistent-hashing affinity key: the c_* and prefix_affinity
+        # balancers route by it
+        self.request_code: Optional[int] = None
         # opaque key/values riding the request meta; server handlers read
         # cntl.request_meta.user_fields (values arrive as bytes)
         self.user_fields: dict = {}
@@ -86,6 +92,8 @@ class Controller:
         self.span_id: int = 0
         self.current_attempt: int = 0
         self.retried_count: int = 0
+        # the server the latest attempt went to (str of its EndPoint)
+        self.remote_side: str = ""
         self.latency_us: int = 0
         self._start_us: int = 0
         self._sync_deadline = False
@@ -158,6 +166,19 @@ class Controller:
             self.error_code = 0
             self.error_text = ""
             self.response_user_fields = {}
+            return True
+
+    def claim_backup(self) -> bool:
+        """Atomically take the next attempt number for a backup request.
+        Unlike a retry it resets no error state: the primary attempt
+        stays live and the first response wins.  Sharing the lock with
+        ``claim_retry`` keeps a backup and a concurrent retry from
+        claiming one version number."""
+        with self._lock:
+            if self._completed:
+                return False
+            self.current_attempt += 1
+            self.retried_count += 1
             return True
 
     def reset_for_retry(self) -> None:

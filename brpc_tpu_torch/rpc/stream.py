@@ -16,6 +16,10 @@ acknowledges every half of the smaller of its buffer and the writer's,
 which it learned in the settings exchange.  The window must hold the
 largest message: a message larger than the window never goes out.
 
+The JAX package's fault sites are kept: ``fault.FRAME`` (drop, dup or
+delay a frame arriving for a local stream) and ``fault.FEEDBACK`` (lose
+a consumed-bytes feedback frame).
+
 Messages are bytes.  A device tensor written to a stream raises
 ``TypeError``: the tensor rail, which moves device buffers under the
 socket, belongs to the ICI transport slice.
@@ -28,7 +32,7 @@ import threading
 import time
 from typing import Optional
 
-from .. import errors
+from .. import errors, fault
 from . import meta as M
 from .transport import Transport
 
@@ -240,6 +244,11 @@ class Stream:
             if send:
                 self._last_feedback = self._consumed_local
         if send and self._sid is not None and self.remote_id is not None:
+            if fault.ENABLED and fault.hit(
+                    fault.FEEDBACK, stream_id=self.stream_id) is not None:
+                # a lost feedback frame: offsets are cumulative, so the
+                # writer's credit returns at the next threshold crossing
+                return
             meta = M.RpcMeta(msg_type=M.MSG_STREAM_FEEDBACK,
                              stream_id=self.remote_id,
                              stream_offset=self._consumed_local)
@@ -319,6 +328,19 @@ class StreamRegistry:
 
     def on_frame(self, sid: int, meta: M.RpcMeta, body) -> None:
         # meta.stream_id addresses the RECEIVER's local stream
+        dup = False
+        if fault.ENABLED:
+            # msg_type and stream_seq let a plan scope its rules: DUP only
+            # duplicates sequenced DATA frames
+            f = fault.hit(fault.FRAME, stream_id=meta.stream_id,
+                          msg_type=meta.msg_type,
+                          stream_seq=meta.stream_seq)
+            if f is not None:
+                if f.kind == fault.DROP:
+                    return
+                dup = (f.kind == fault.DUP
+                       and meta.msg_type == M.MSG_STREAM_DATA
+                       and meta.stream_seq != 0)
         s = self.get(meta.stream_id)
         if s is None:
             return
@@ -332,7 +354,12 @@ class StreamRegistry:
                            "streams bytes only", s.stream_id)
                 s._on_closed_internal()
                 return
-            s._on_data(body.to_bytes(), meta.stream_seq)
+            payload = body.to_bytes()
+            s._on_data(payload, meta.stream_seq)
+            if dup:
+                # a transport-level redelivery: the reorder layer must
+                # drop it, never deliver it twice
+                s._on_data(payload, meta.stream_seq)
         elif meta.msg_type == M.MSG_STREAM_FEEDBACK:
             s._on_feedback(meta.stream_offset)
         elif meta.msg_type == M.MSG_STREAM_CLOSE:

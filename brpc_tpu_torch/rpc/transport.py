@@ -8,8 +8,9 @@ for deadlines.  Plain requests and responses take the fast path: their
 metas are packed and parsed natively and cross into Python through the
 port's ``_fastrpc`` extension with no ctypes marshalling; every other
 frame (streams, user fields, attachments) arrives at ``on_message``
-with its meta bytes.  TLS, the h2/gRPC plane and fault sites are left
-out.
+with its meta bytes.  The JAX package's transport fault sites are kept
+(``fault.CONNECT``, ``fault.SEND``, ``fault.RECV``).  TLS and the
+h2/gRPC plane are left out.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import logging
 import threading
 from typing import Callable, Optional
 
+from .. import fault
 from .._core import lib
 from .._core.lib import (ACCEPTED_CB, FAILED_CB, MESSAGE_CB, MSG_HTTP,
                          MSG_TRPC, RESPONSE_CB, TASK_CB, IOBuf)
@@ -25,6 +27,32 @@ from .._core.lib import (ACCEPTED_CB, FAILED_CB, MESSAGE_CB, MSG_HTTP,
 __all__ = ["Transport", "MSG_HTTP", "MSG_TRPC"]
 
 _log = logging.getLogger(__name__)
+
+
+def _apply_send_fault(core, sid: int, payload):
+    """The one interpreter of every ``fault.SEND`` site (call only
+    behind ``fault.ENABLED``).  Returns ``(rc, payload)``: a non-None rc
+    short-circuits the write; otherwise the caller writes ``payload``,
+    which a CORRUPT fault mangles.  Each site passes the bytes whose
+    corruption is meaningful there: the meta of a framed write (the
+    peer's decode discards the frame), the body or the raw buffer of
+    the others."""
+    f = fault.hit(fault.SEND, sid=sid)
+    if f is None:
+        return None, payload
+    if f.kind == fault.CORRUPT:
+        return None, fault.mangle(bytes(payload)) if payload else payload
+    if f.kind == fault.OVERCROWD:
+        return -2, payload
+    if f.kind in (fault.RESET, fault.PARTIAL):
+        if f.kind == fault.PARTIAL:
+            # a torn prefix reaches the peer's parser before the close:
+            # the half-written frame of a mid-write process death
+            torn = b"TRPC\x00\x00\x00\x08"
+            core.brpc_socket_write_raw(sid, torn, len(torn), None)
+        core.brpc_socket_set_failed(sid, 104)   # ECONNRESET
+        return -1, payload
+    return f.rc, payload   # ERROR: a plain write failure
 
 
 class Transport:
@@ -56,6 +84,15 @@ class Transport:
         def _on_message(sid, kind, meta, meta_len, body, user):
             buf = IOBuf(body)  # takes ownership, freed at GC
             m = ctypes.string_at(meta, meta_len) if meta_len else b""
+            if fault.ENABLED:
+                f = fault.hit(fault.RECV, sid=sid, kind=kind)
+                if f is not None:
+                    if f.kind == fault.DROP:
+                        return          # delivered by TCP, lost above it
+                    if f.kind == fault.CORRUPT:
+                        # a mangled meta fails RpcMeta.decode downstream:
+                        # the frame is discarded like line noise
+                        m = fault.mangle(m)
             h = self._handlers.get(sid)
             if h is not None:
                 try:
@@ -164,6 +201,10 @@ class Transport:
     def connect_rpc(self, host: str, port: int, on_message, on_failed=None,
                     on_response=None) -> int:
         """Connect with the natively pre-parsed response path."""
+        if fault.ENABLED and fault.hit(fault.CONNECT, host=host,
+                                       port=port) is not None:
+            raise ConnectionError(
+                f"injected connect refusal to {host}:{port}")
         sid = ctypes.c_uint64()
         rc = self.core.brpc_connect_rpc(
             host.encode(), port, self._cb_message, self._cb_failed,
@@ -188,6 +229,10 @@ class Transport:
                      method: str, timeout_ms: int, compress: int,
                      content_type: str, body: bytes) -> int:
         """Pack and write a plain TRPC request frame natively."""
+        if fault.ENABLED:
+            rc, body = _apply_send_fault(self.core, sid, body)
+            if rc is not None:
+                return rc
         return self.fastrpc.send_request(sid, cid, attempt, service, method,
                                          timeout_ms or 0, compress,
                                          content_type, body)
@@ -196,6 +241,10 @@ class Transport:
                       error_code: int, error_text: str, content_type: str,
                       body: bytes) -> int:
         """Pack and write a plain TRPC response frame natively."""
+        if fault.ENABLED:
+            rc, body = _apply_send_fault(self.core, sid, body)
+            if rc is not None:
+                return rc
         return self.fastrpc.send_response(sid, cid, attempt, error_code,
                                           error_text or "",
                                           content_type or "", body)
@@ -203,14 +252,27 @@ class Transport:
     def write_frame(self, sid: int, meta: bytes, body: bytes = b"") -> int:
         """Write one TRPC frame: 0, -1 (socket failed) or -2 (its write
         queue is overcrowded)."""
+        if fault.ENABLED:
+            # CORRUPT mangles the META: the frame arrives, parses as
+            # TRPC, fails decode at the peer and is discarded
+            rc, meta = _apply_send_fault(self.core, sid, meta)
+            if rc is not None:
+                return rc
         return self.core.brpc_socket_write_frame(sid, meta, len(meta), body,
                                                  len(body), None)
 
     def write_raw(self, sid: int, data: bytes) -> int:
+        if fault.ENABLED:
+            rc, data = _apply_send_fault(self.core, sid, data)
+            if rc is not None:
+                return rc
         return self.core.brpc_socket_write_raw(sid, data, len(data), None)
 
     def close(self, sid: int, err: int = 0) -> None:
         self.core.brpc_socket_set_failed(sid, err)
+
+    def alive(self, sid: int) -> bool:
+        return bool(self.core.brpc_socket_alive(sid))
 
     # ---- timers (native TimerThread) ----
 

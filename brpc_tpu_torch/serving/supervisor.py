@@ -43,11 +43,19 @@ takeover with ELOGOFF.  The engine's decode and prefill spans nest
 under the attempt's span.  The state, engine hand-off and per-request
 locks are named (``supervisor.*``).
 
+FLAPPING REPLICAS.  Every crash is reported to the port's circuit
+breaker (``policy/circuit_breaker.py``): its isolation count for the
+supervisor's ``endpoint`` grows by one per crash, so holds double, and
+once ``quarantine_after`` crashes accumulate inside
+``restart_window_s`` the endpoint is marked broken with the breaker's
+isolation hold.  Balancers (``prefix_affinity`` too) stop selecting it,
+so the consistent-hash ring remaps only the quarantined replica's share
+of prefixes, until the health check's probe revives it.  The report
+runs outside the supervisor's locks.
+
 ``submit`` has the DecodeEngine's signature, so a supervisor drops into
 ``register_serving(engine=...)`` unchanged.  The engine and the batcher
-compute on their own devices; the supervisor runs on the host.  Left
-out (ROADMAP): quarantine through the channel-level circuit breaker, so
-``endpoint`` must be None.
+compute on their own devices; the supervisor runs on the host.
 """
 from __future__ import annotations
 
@@ -127,15 +135,12 @@ class EngineSupervisor:
                  check_interval_s: float = 0.1,
                  max_restarts: int = 8,
                  restart_window_s: float = 60.0,
+                 quarantine_after: int = 3,
                  endpoint=None,
                  ladder: Sequence[dict] = DEFAULT_LADDER,
                  clamp_new_tokens: int = 32,
                  hysteresis_ticks: int = 5,
                  name: str = "supervisor"):
-        if endpoint is not None:
-            raise ValueError("endpoint quarantine needs the channel-level "
-                             "circuit breaker, which the port does not "
-                             "have yet: pass endpoint=None")
         self.engine_factory = engine_factory
         # CALLER-owned and shared across engine incarnations: the radix
         # tree outliving the engine is what makes recovery prefill-free
@@ -145,6 +150,8 @@ class EngineSupervisor:
         self.check_interval_s = float(check_interval_s)
         self.max_restarts = int(max_restarts)
         self.restart_window_s = float(restart_window_s)
+        self.quarantine_after = int(quarantine_after)
+        self.endpoint = endpoint
         self.ladder = tuple(ladder)
         self.clamp_new_tokens = int(clamp_new_tokens)
         self.hysteresis_ticks = int(hysteresis_ticks)
@@ -509,6 +516,7 @@ class EngineSupervisor:
             # engine too; its ELOGOFF terminal re-admits it
             self._by_rid.clear()
         old.close(timeout_s=1.0)
+        self._report_crash()
         gave_up = len(self._restart_times) > self.max_restarts
         if not gave_up:
             try:
@@ -542,6 +550,22 @@ class EngineSupervisor:
         # rebuild above is published (it would be waiting on itself)
         for req in waiters:
             req.finish(restart_err)
+
+    def _report_crash(self) -> None:
+        """Feed the crash to the circuit breaker: the endpoint's
+        isolation count grows by one (so its holds double), and past
+        ``quarantine_after`` crashes in the window the endpoint is marked
+        broken, which every balancer skips until the probe revives it."""
+        if self.endpoint is None:
+            return
+        try:
+            from ..policy.circuit_breaker import global_breaker
+            breaker = global_breaker()
+            breaker.on_socket_failed(self.endpoint)   # isolation count +1
+            if len(self._restart_times) >= self.quarantine_after:
+                breaker.mark_as_broken(self.endpoint)
+        except Exception:
+            _log.exception("supervisor crash report failed")
 
     def _fail_permanently(self, reason: str) -> None:
         """Too many crashes inside the window: stop rebuilding, and give
@@ -664,7 +688,11 @@ class EngineSupervisor:
         with self._mu:
             live = len(self._live)
         eng = self._engine
-        return {
+        quarantined = False
+        if self.endpoint is not None:
+            from ..policy.health_check import is_broken
+            quarantined = is_broken(self.endpoint)
+        out = {
             "state": self.state,
             "degradation_level": self.level,
             "restarts": self.restarts_total.get_value(),
@@ -676,4 +704,8 @@ class EngineSupervisor:
             "engine": None if eng is None else eng.name,
             "heartbeat_deadline_s": self.heartbeat_deadline_s,
             "last_recovery": self.last_recovery,
+            "quarantined": quarantined,
         }
+        if self.endpoint is not None:
+            out["endpoint"] = str(self.endpoint)
+        return out

@@ -108,7 +108,33 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      attempts share its trace (``recovered_from``); the top 5 locks by
      wait time, no lock-order violation (the witness); every stream the
      oracle's, every row the unbatched forward's;
-  9. after every serving phase, no native emit ring alive beyond the
+  9. replicas phase, the wide configuration's weights on two replicas
+     R0 and R1, each with its own runner, ``KVCacheStore``,
+     ``EngineSupervisor(endpoint=..., quarantine_after=3)``,
+     ``DynamicBatcher`` and port ``Server``, behind the port's cluster
+     channel ``Channel("list://R0,R1", load_balancer="prefix_affinity")``
+     with each request's code its prompt's ``prefix_fingerprint``: 4
+     prefix families of 4 200-token prompts (a 160-token head each), 32
+     new tokens, 8 streams at a time.  First Score: 16 ``ScoreT`` rows a
+     pass fanned out over both replicas by a ``ParallelChannel`` (a
+     ``CallMapper`` gives each replica half, a merger restores the
+     order) against all 16 on R0, in 3 alternating pairs, then through
+     ``PartitionChannel.call_partitioned``; then a backup request: R0's
+     batch stalled 0.2 s (``fault.BATCH``), a Score on an ``rr``
+     cluster channel with ``backup_request_ms=20`` answered by R1.
+     Generate cold and warm: each family on its ring owner, warm hits of
+     at least 144 tokens on the owner and none on the other replica.
+     Quarantine: R0's engine crash-loops (``fault.STEP`` x3) with its
+     families in flight, the supervisor marks R0 broken, a wave issued
+     then puts every family on R1; the health probe (every 50 ms)
+     revives R0 after the breaker's hold; 3 alternating warm pairs of
+     the cluster against R0 alone through a plain ``Channel``; after the
+     breaker's 3 s re-admission ramp, R0's families route back to R0.
+     Every stream equal to the dense oracle, every row to the unbatched
+     forward; prints tokens/s, hits per replica, crash -> quarantine,
+     -> first token on the survivor and -> revival times, Score rows/s,
+     backups and the phase's launches;
+ 10. after every serving phase, no native emit ring alive beyond the
      baseline (``native_path.tokring_live``); prints ``{"kernels":
      [...]}``, the card line, and as the LAST line
      ``{"ok": true, "device": {...}}``.
@@ -146,6 +172,13 @@ SCORE_PAIRS = 3      # Score passes with the native hot path on and off
 TRACE_PAIRS = 3      # passes with rpcz on and off
 SCORE_T_CALLS = 32   # concurrent ScoreT calls of the control-plane phase
 SCORE_JSON_CALLS = 8
+# the replicas phase: prefix families over two replicas
+REPLICA_FAMILIES = 4
+FAMILY_SIZE = 4
+FAMILY_HEAD = 160    # tokens a family shares
+FAMILY_TAIL = 40     # tokens of each prompt's own
+REPLICA_PAIRS = 3    # warm cluster/one-replica Generate pairs
+SCORE_FAN_PAIRS = 3  # fanned-out/one-replica Score pairs
 # ladder thresholds no burst of the control-plane phase can cross: its
 # brownout is driven by the level floor alone
 CALM_LADDER = ({"queue_delay_us": float("inf"), "pool_ratio": 9.9,
@@ -741,14 +774,14 @@ def pct(xs, q):
         if len(xs) else None
 
 
-def rpc_generate_all(port, prompts, label, extra=None, roots=None):
-    """One ``Serving.Generate`` per prompt, all issued at once through
-    the port's Channel, each with its own token stream; the client
-    stamps each call's issue and each token's arrival.  With ``roots``
-    (a list), each call is issued under a fresh rpcz client span, which
-    is appended to it.  Returns the streams, their ``prefix_hit``s, the
-    client-timed time to first token and inter-token gaps (seconds), and
-    the wall time."""
+def issue_generates(ch, prompts, extra=None, roots=None, codes=None):
+    """One ``Serving.Generate`` per prompt, all issued at once on channel
+    ``ch``, each with its own token stream; the client stamps each
+    call's issue and each token's arrival.  With ``roots`` (a list),
+    each call is issued under a fresh rpcz client span, which is
+    appended to it; with ``codes``, each call carries its request code
+    (a cluster channel's balancer routes by it).  Returns the calls'
+    records for :func:`wait_generates`."""
     import brpc_tpu_torch.rpc as rpc
     import brpc_tpu_torch.rpcz as rpcz
 
@@ -758,6 +791,7 @@ def rpc_generate_all(port, prompts, label, extra=None, roots=None):
             self.closed = threading.Event()
             self.answered = threading.Event()
             self.resp = self.err = None
+            self.side = ""
 
         def on_received_messages(self, stream, messages):
             now = time.perf_counter()
@@ -774,13 +808,14 @@ def rpc_generate_all(port, prompts, label, extra=None, roots=None):
 
         def on_response(self, cntl):
             self.resp, self.err = cntl.response, cntl.error_code
+            self.side = cntl.remote_side
             self.answered.set()
 
-    ch = rpc.Channel(f"127.0.0.1:{port}", timeout_ms=120_000)
     recs = []
-    t0 = time.perf_counter()
     for i, p in enumerate(prompts):
         rec, cntl = Stream(), rpc.Controller()
+        if codes is not None:
+            cntl.request_code = codes[i]
         rpc.stream_create(cntl, rec)
         body = {"prompt": p, "max_new_tokens": NEW_TOKENS,
                 **((extra or {}).get(i, {}))}
@@ -795,6 +830,14 @@ def rpc_generate_all(port, prompts, label, extra=None, roots=None):
             if roots is not None:
                 rpcz.set_current_span(None)
         recs.append(rec)
+    return recs
+
+
+def wait_generates(recs, label):
+    """Wait for every stream of :func:`issue_generates`; any error or a
+    hang fails the run.  Returns the streams, their ``prefix_hit``s, the
+    client-timed time to first token and inter-token gaps (seconds), and
+    the server each call went to."""
     for i, rec in enumerate(recs):
         check(rec.answered.wait(300) and rec.closed.wait(300),
               f"{label}: stream {i} hung")
@@ -802,13 +845,27 @@ def rpc_generate_all(port, prompts, label, extra=None, roots=None):
               f"{label}: stream {i} answered {rec.err} {rec.resp}")
         check(rec.terminal == {"done": True},
               f"{label}: stream {i} ended with {rec.terminal}")
-    wall = time.perf_counter() - t0
-    for root in roots or ():
-        rpcz.submit(root)
     ttft = [r.arrivals[0] - r.t_issue for r in recs if r.arrivals]
     gaps = [b - a for r in recs for a, b in zip(r.arrivals, r.arrivals[1:])]
     return ([r.toks for r in recs], [r.resp["prefix_hit"] for r in recs],
-            ttft, gaps, wall)
+            ttft, gaps, [r.side for r in recs])
+
+
+def rpc_generate_all(port, prompts, label, extra=None, roots=None):
+    """One ``Serving.Generate`` per prompt, all issued at once through
+    the port's Channel to ``port`` (see :func:`issue_generates`).
+    Returns the streams, their ``prefix_hit``s, the client-timed time to
+    first token and inter-token gaps (seconds), and the wall time."""
+    import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.rpcz as rpcz
+    ch = rpc.Channel(f"127.0.0.1:{port}", timeout_ms=120_000)
+    t0 = time.perf_counter()
+    recs = issue_generates(ch, prompts, extra, roots)
+    streams, hits, ttft, gaps, _ = wait_generates(recs, label)
+    wall = time.perf_counter() - t0
+    for root in roots or ():
+        rpcz.submit(root)
+    return streams, hits, ttft, gaps, wall
 
 
 _CLIENT = """
@@ -1676,6 +1733,463 @@ def serve_host_path(dev, cfg, ctx, card):
     }
 
 
+# ---- replicas phase: two replicas behind the port's cluster channel -----
+
+def free_port():
+    """A loopback port nothing listens on now (each replica's supervisor
+    names its endpoint before the replica's server starts)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def family_prompts(cfg, eps, seed):
+    """REPLICA_FAMILIES prefix families of FAMILY_SIZE prompts: a family
+    shares a FAMILY_HEAD-token head, each prompt its own FAMILY_TAIL-token
+    tail.  Heads are drawn from ``seed`` and taken in draw order, half of
+    the families owned by each replica on the prefix_affinity ring over
+    ``eps``, so both replicas serve (the ring's owner of a head depends
+    on the servers' ports)."""
+    import brpc_tpu_torch.policy.load_balancer as lbm
+    lb = lbm.create_load_balancer("prefix_affinity")
+    lb.reset_servers([lbm.ServerNode(ep) for ep in eps])
+    rng = np.random.default_rng(seed)
+    want = REPLICA_FAMILIES // len(eps)
+    owned = {str(ep): [] for ep in eps}
+    for _ in range(1000):
+        head = rng.integers(0, cfg.vocab, FAMILY_HEAD).tolist()
+        owner = str(lb.select_server(
+            request_code=lbm.prefix_fingerprint(head)))
+        if len(owned[owner]) < want:
+            owned[owner].append(head)
+        if all(len(v) == want for v in owned.values()):
+            break
+    check(all(len(v) == want for v in owned.values()),
+          f"b replicas: the ring gave no {want} heads to each replica")
+    families = []
+    for ep in eps:
+        for head in owned[str(ep)]:
+            families.append({
+                "owner": str(ep),
+                "prompts": [head + rng.integers(0, cfg.vocab,
+                                                FAMILY_TAIL).tolist()
+                            for _ in range(FAMILY_SIZE)]})
+    return families
+
+
+def serve_replicas(dev, cfg, ctx, card):
+    """Step 9 (see the module docstring): (b)'s weights on two replicas
+    behind the port's cluster channel."""
+    import brpc_tpu_torch.fault as fault
+    import brpc_tpu_torch.models as models
+    import brpc_tpu_torch.native_path as native_path
+    import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.serving as serving
+    from brpc_tpu_torch.butil import lockprof
+    from brpc_tpu_torch.butil.endpoint import EndPoint
+    from brpc_tpu_torch.ici.block_pool import BlockPool
+    from brpc_tpu_torch.policy import health_check
+    from brpc_tpu_torch.policy.circuit_breaker import (CircuitBreaker,
+                                                       global_breaker)
+    from brpc_tpu_torch.policy.load_balancer import prefix_fingerprint
+    t_phase = time.perf_counter()
+    geo, params = ctx["geometry"], ctx["params"]
+    counts = Counts()
+    rings0 = native_path.tokring_live()
+    # retire the probes of the earlier phases' stopped servers, then
+    # probe every 50 ms: the revival below waits on it
+    health_check.reset_all()
+    interval0 = health_check.health_check_interval_s
+    health_check.health_check_interval_s = 0.05
+    breaker = global_breaker()
+    label = "b replicas"
+
+    replicas = []
+
+    def replica(i):
+        name = f"b_rep{i}"
+        ep = EndPoint("127.0.0.1", free_port())
+        # a block pool of its own: the replica's device memory, as if
+        # it ran on a card of its own
+        store = models.make_store_for(cfg, page_tokens=geo["page_tokens"],
+                                      max_blocks=geo["max_blocks"],
+                                      pool=BlockPool(dev), name=name)
+
+        def factory():
+            runner = models.TransformerRunner(params, cfg, store=store,
+                                              device=dev, name=name)
+            return serving.DecodeEngine(
+                runner=runner, store=store, num_slots=geo["num_slots"],
+                max_pages_per_slot=geo["max_pages"],
+                prefill_buckets=geo["buckets"], device=dev, name=name)
+
+        batcher = serving.DynamicBatcher(
+            models.TransformerRunner(params, cfg, device=dev,
+                                     name=f"{name} score"),
+            max_batch_size=8, max_delay_us=5000, length_buckets=(64, 256),
+            dtype=np.int32, name=f"{name}_score")
+        sup = serving.EngineSupervisor(
+            factory, store=store, heartbeat_deadline_s=30.0,
+            check_interval_s=0.02, ladder=CALM_LADDER, endpoint=ep,
+            quarantine_after=3, name=name)
+        server = rpc.Server()
+        serving.register_serving(server, batcher=batcher, engine=sup)
+        server.start(ep.host, ep.port)
+        return {"name": name, "ep": ep, "addr": str(ep), "store": store,
+                "free0": store.pagepool.pool.stats()["classes"],
+                "batcher": batcher, "sup": sup, "server": server}
+
+    try:
+        for i in range(2):
+            replicas.append(replica(i))
+        r0, r1 = replicas
+        eps = [r["ep"] for r in replicas]
+        side_of = {r["addr"]: r for r in replicas}
+        cluster = rpc.Channel(f"list://{r0['addr']},{r1['addr']}",
+                              timeout_ms=120_000,
+                              load_balancer="prefix_affinity")
+        families = family_prompts(cfg, eps, seed=21)
+        prompts = [p for f in families for p in f["prompts"]]
+        fam_of = [k for k, f in enumerate(families) for _ in f["prompts"]]
+        codes = [prefix_fingerprint(p) for p in prompts]
+        # two waves of 8 a pass: each wave holds every family
+        waves = [[i for i in range(len(prompts))
+                  if i % FAMILY_SIZE in (w, w + 2)] for w in range(2)]
+        # the checks' references, outside every counting window
+        t0 = time.perf_counter()
+        oracle = [models.dense_generate(params, cfg, p, NEW_TOKENS,
+                                        device=dev) for p in prompts]
+        want = [unbatched_ids(params, cfg, dev, p) for p in prompts]
+        t_refs = time.perf_counter() - t0
+        rows = [np.asarray(p, np.float32) for p in prompts]
+        toks = len(prompts) * NEW_TOKENS
+
+        def held(what, idx, streams):
+            for i, got in zip(idx, streams):
+                check(got == oracle[i], f"{label} {what}: request {i} "
+                                        f"streamed {got}, dense oracle "
+                                        f"{oracle[i]}")
+
+        def gen_pass(ch, what, idx_waves=waves, routed=True):
+            """The prompts of ``idx_waves``, a wave (8 streams) at a
+            time; every stream the oracle's.  Returns the wall time, the
+            prefix hits and the server of each request, by index."""
+            hits, sides = {}, {}
+            t0 = time.perf_counter()
+            for idx in idx_waves:
+                recs = issue_generates(
+                    ch, [prompts[i] for i in idx],
+                    codes=[codes[i] for i in idx] if routed else None)
+                streams, h, _, _, sd = wait_generates(recs,
+                                                      f"{label} {what}")
+                held(what, idx, streams)
+                hits.update(zip(idx, h))
+                sides.update(zip(idx, sd))
+            return time.perf_counter() - t0, hits, sides
+
+        def owners_hold(what, sides, moved=()):
+            """Each family on one replica: its ring owner, or the
+            survivor for a family in ``moved``."""
+            for i, side in sides.items():
+                f = families[fam_of[i]]
+                expect = r1["addr"] if fam_of[i] in moved else f["owner"]
+                check(side == expect, f"{label} {what}: request {i} of "
+                                      f"family {fam_of[i]} went to {side}, "
+                                      f"not {expect}")
+
+        # -- Score fan-out first: the breaker's latency windows start on
+        # Score calls (see PERF.md on latency isolation across methods)
+        chans = [rpc.Channel(r["addr"], timeout_ms=120_000)
+                 for r in replicas]
+
+        class Halves(rpc.CallMapper):
+            def map(self, i, n, request):
+                return rpc.SubCall({"x": request["rows"][i]})
+
+        class InOrder(rpc.ResponseMerger):
+            def merge(self, responses):
+                return [np.asarray(r["y"]) for r in responses]
+
+        fan = rpc.ParallelChannel(call_mapper=Halves(),
+                                  response_merger=InOrder())
+        for ch in chans:
+            fan.add_channel(ch)
+        pairs = [(2 * k, 2 * k + 1) for k in range(len(rows) // 2)]
+
+        def fan_pass():
+            cntls = [fan.call("Serving", "ScoreT",
+                              {"rows": [rows[a], rows[b]]},
+                              cntl=rpc.Controller(timeout_ms=120_000),
+                              serializer="tensorframe") for a, b in pairs]
+            out = []
+            for (a, b), c in zip(pairs, cntls):
+                c.join()
+                check(not c.failed(), f"{label} fan-out: {c.error_code} "
+                                      f"{c.error_text}")
+                out += [(a, c.response[0]), (b, c.response[1])]
+            return out
+
+        def single_pass():
+            cntls = [chans[0].call("Serving", "ScoreT", {"x": row},
+                                   cntl=rpc.Controller(timeout_ms=120_000),
+                                   serializer="tensorframe")
+                     for row in rows]
+            for c in cntls:
+                c.join()
+                check(not c.failed(), f"{label} one-replica score: "
+                                      f"{c.error_code} {c.error_text}")
+            return [(i, c.response["y"]) for i, c in enumerate(cntls)]
+
+        score_rps = {"fanned": [], "single": []}
+        for k in range(SCORE_FAN_PAIRS):
+            for mode in (("fanned", "single") if k % 2 == 0
+                         else ("single", "fanned")):
+                t0 = time.perf_counter()
+                got = counts.window(fan_pass if mode == "fanned"
+                                    else single_pass)
+                score_rps[mode].append(len(rows)
+                                       / (time.perf_counter() - t0))
+                hold_rows(f"{label} score {mode}", got, want)
+        part = rpc.PartitionChannel(2)
+        part.add_partition(0, chans[0]).add_partition(1, chans[1])
+        part_out = [None] * len(pairs)
+
+        def partitioned(k):
+            a, b = pairs[k]
+            part_out[k] = part.call_partitioned(
+                "Serving", "ScoreT", {0: {"x": rows[a]}, 1: {"x": rows[b]}},
+                serializer="tensorframe", timeout_ms=120_000)
+
+        def partition_pass():
+            ts = [threading.Thread(target=partitioned, args=(k,))
+                  for k in range(len(pairs))]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(300)
+
+        counts.window(partition_pass)
+        check(all(o is not None for o in part_out),
+              f"{label} partition score: a call failed or hung")
+        hold_rows(f"{label} partition score",
+                  [(i, part_out[k][j]["y"]) for k, ab in enumerate(pairs)
+                   for j, i in enumerate(ab)], want)
+
+        # -- a backup request: R0's batch stalls 0.2 s, the backup after
+        # 20 ms lands on R1 (rr's first pick is R0)
+        backup_ch = rpc.Channel(f"list://{r0['addr']},{r1['addr']}",
+                                timeout_ms=120_000, load_balancer="rr",
+                                backup_request_ms=20)
+        plan = fault.FaultPlan(5).on(
+            fault.BATCH, fault.LATENCY, latency_s=0.2, times=1,
+            match=lambda c: c.get("name") == r0["batcher"].name)
+        b0 = r0["batcher"].stats()["batches"]
+        bcntl = rpc.Controller()
+
+        def backup_call():
+            t0 = time.perf_counter()
+            y = serving.ScoreClient(backup_ch).score(rows[0], cntl=bcntl)
+            took = time.perf_counter() - t0
+            # the stalled primary still runs its batch: wait it out
+            # inside the window, so its kernel launches count here
+            end = time.monotonic() + 30
+            while (r0["batcher"].stats()["batches"] == b0
+                   and time.monotonic() < end):
+                time.sleep(0.005)
+            return y, took
+
+        with fault.injected(plan):
+            y, t_backup = counts.window(backup_call)
+        check(plan.injected.get(fault.BATCH) == 1,
+              f"{label} backup: the stall fired {plan.injected}")
+        check(bcntl.retried_count == 1 and bcntl.remote_side == r1["addr"]
+              and t_backup < 0.2,
+              f"{label} backup: retried {bcntl.retried_count}, from "
+              f"{bcntl.remote_side}, {t_backup:.3f} s")
+        hold_rows(f"{label} backup", [(0, y)], want)
+
+        # -- Generate through the cluster channel, cold then warm
+        hit_before = [r["store"].hit_tokens for r in replicas]
+        t_cold, _, sides = counts.window(lambda: gen_pass(cluster, "cold"))
+        owners_hold("cold", sides)
+        hit_cold = [r["store"].hit_tokens for r in replicas]
+        t_warm, hits, sides = counts.window(lambda: gen_pass(cluster,
+                                                             "warm"))
+        owners_hold("warm", sides)
+        hit_warm = [r["store"].hit_tokens - h
+                    for r, h in zip(replicas, hit_cold)]
+        for i, h in hits.items():
+            f = families[fam_of[i]]
+            other = r1 if f["owner"] == r0["addr"] else r0
+            check(h >= FAMILY_HEAD - 16,
+                  f"{label} warm: request {i} hit {h} tokens on its "
+                  f"owner")
+            check(other["store"].probe(prompts[i]) == 0,
+                  f"{label} warm: family {fam_of[i]} is cached on "
+                  f"{other['addr']} too")
+
+        # -- quarantine: R0's engine crash-loops with its families in
+        # flight; past 3 crashes R0 is marked broken, a wave issued then
+        # moves R0's families to R1, R1's stay
+        r0_fams = [k for k, f in enumerate(families)
+                   if f["owner"] == r0["addr"]]
+        crash_idx = [i for i in range(len(prompts)) if fam_of[i] in r0_fams]
+        moved_idx = waves[0]
+        plan = fault.FaultPlan(7).on(
+            fault.STEP, fault.ERROR, times=3,
+            match=lambda c: c.get("name") == r0["name"])
+
+        revived = {}
+
+        def watch_revival():
+            end = time.monotonic() + 30
+            while (health_check.is_broken(r0["ep"])
+                   and time.monotonic() < end):
+                time.sleep(0.001)
+            revived["t"] = time.monotonic()
+
+        watcher = threading.Thread(target=watch_revival)
+
+        def quarantine():
+            with fault.injected(plan):
+                crash = issue_generates(cluster,
+                                        [prompts[i] for i in crash_idx],
+                                        codes=[codes[i] for i in crash_idx])
+                end = time.monotonic() + 60
+                while (not health_check.is_broken(r0["ep"])
+                       and time.monotonic() < end):
+                    time.sleep(0.001)
+                t_q = time.monotonic()
+                tp_q = time.perf_counter()
+                watcher.start()         # stamps the revival
+                broken = health_check.is_broken(r0["ep"])
+                quarantined = r0["sup"].stats()["quarantined"]
+                moved = issue_generates(cluster,
+                                        [prompts[i] for i in moved_idx],
+                                        codes=[codes[i] for i in moved_idx])
+                still = health_check.is_broken(r0["ep"])
+                crashed = wait_generates(crash, f"{label} crash-loop")
+            return (t_q, tp_q, broken, quarantined, still, crashed, moved,
+                    wait_generates(moved, f"{label} moved"))
+
+        (t_q, tp_q, broken, quarantined, still, crashed, moved,
+         (moved_streams, _, _, _, moved_sides)) = counts.window(quarantine)
+        check(broken and quarantined and still,
+              f"{label} quarantine: broken {broken}, stats quarantined "
+              f"{quarantined}, still broken after the moved wave was "
+              f"issued {still}")
+        held("crash-loop", crash_idx, crashed[0])
+        held("moved", moved_idx, moved_streams)
+        owners_hold("moved", dict(zip(moved_idx, moved_sides)),
+                    moved=r0_fams)
+        st0 = r0["sup"].stats()
+        check(plan.injected.get(fault.STEP) == 3 and st0["restarts"] == 3,
+              f"{label} quarantine: fault {plan.injected}, restarts "
+              f"{st0['restarts']}")
+        crash_t = r0["sup"]._restart_times[0]
+        first_survivor = min(r.arrivals[0] for r in moved) - tp_q
+        # -- revival: the probe revives R0 after the breaker's hold
+        watcher.join(35)
+        t_rev = revived["t"]
+        check(not health_check.is_broken(r0["ep"])
+              and not r0["sup"].stats()["quarantined"],
+              f"{label}: R0 was not revived within 30 s")
+
+        # -- cluster against one replica, warm, in alternating pairs
+        # (these run inside the breaker's ramp after the revival)
+        single = rpc.Channel(r0["addr"], timeout_ms=120_000)
+        gen_tps = {"cluster": [], "single": []}
+        # each engine's steps and step seconds in the pairs, by mode: a
+        # replica's step costs host time per step, not per token
+        steps = {m: [0, 0.0] for m in gen_tps}
+        for k in range(REPLICA_PAIRS):
+            for mode in (("cluster", "single") if k % 2 == 0
+                         else ("single", "cluster")):
+                engs = [r["sup"].engine for r in replicas]
+                s0 = [(e.steps.get_value(), e.step_seconds) for e in engs]
+                t, _, sides = counts.window(lambda: gen_pass(
+                    cluster if mode == "cluster" else single,
+                    f"{mode} pair", routed=mode == "cluster"))
+                for e, (n0, sec0) in zip(engs, s0):
+                    steps[mode][0] += e.steps.get_value() - n0
+                    steps[mode][1] += e.step_seconds - sec0
+                gen_tps[mode].append(toks / t)
+                if mode == "single":
+                    check(set(sides.values()) == {r0["addr"]},
+                          f"{label} single: served by {set(sides.values())}")
+        # -- after the ramp, R0's families route back to R0
+        ramp_left = t_rev + CircuitBreaker.RECOVERY_WINDOW_S \
+            - time.monotonic()
+        if ramp_left > 0:
+            time.sleep(ramp_left)
+        _, _, sides = counts.window(lambda: gen_pass(cluster, "route back",
+                                                     idx_waves=waves[:1]))
+        owners_hold("route back", sides)
+        for r in replicas:
+            check(r["sup"].join_idle(30),
+                  f"{label}: {r['name']} did not go idle")
+            live = r["store"].stats()["live_seqs"]
+            check(live == 0, f"{label}: {live} sequences live on "
+                             f"{r['name']}")
+        isolations = {r["name"]: breaker.isolation_count(r["ep"])
+                      for r in replicas}
+    finally:
+        for r in replicas:
+            r["server"].stop()
+            r["server"].join()
+        for r in replicas:
+            r["sup"].close()
+            r["batcher"].close()
+            r["store"].clear()
+        health_check.reset_all()
+        health_check.health_check_interval_s = interval0
+    for r in replicas:
+        check(r["store"].pagepool.blocks_leased() == 0 and
+              r["store"].pagepool.pool.stats()["classes"] == r["free0"],
+              f"{label}: {r['name']}'s page pool did not return to its "
+              f"baseline")
+    check_rings(label, rings0)
+    check(not lockprof.order_violations(),
+          "lock-order violations:\n" + lockprof.witness_report())
+    check(counts.paged > 0 and counts.paged_cuda == 2 * counts.paged
+          and counts.flash > 0,
+          f"{label}: {counts.paged} paged calls ({counts.paged_cuda} CUDA), "
+          f"{counts.flash} flash calls")
+    med = {k: pct(v, 50) for k, v in gen_tps.items()}
+    smed = {k: pct(v, 50) for k, v in score_rps.items()}
+    return {
+        "config": label, "card": card, "families": len(families),
+        "family_size": FAMILY_SIZE, "prompt_len": len(prompts[0]),
+        "head_tokens": FAMILY_HEAD, "new_tokens": NEW_TOKENS,
+        "owners": [f["owner"] for f in families],
+        "cold_tokens_per_s": toks / t_cold,
+        "warm_tokens_per_s": toks / t_warm,
+        "warm_hit_tokens_per_replica": dict(zip(
+            [r["name"] for r in replicas], hit_warm)),
+        "cold_hit_tokens_per_replica": dict(zip(
+            [r["name"] for r in replicas],
+            [c - b for c, b in zip(hit_cold, hit_before)])),
+        "warm_min_prefix_hit": min(hits.values()),
+        "pair_tokens_per_s": gen_tps, "pair_tokens_per_s_median": med,
+        "cluster_over_single": med["cluster"] / med["single"],
+        "pair_steps": {m: v[0] for m, v in steps.items()},
+        "pair_mean_step_ms": {m: 1e3 * v[1] / max(1, v[0])
+                              for m, v in steps.items()},
+        "crash_to_quarantine_ms": 1e3 * (t_q - crash_t),
+        "quarantine_to_first_survivor_token_ms": 1e3 * first_survivor,
+        "quarantine_to_revival_ms": 1e3 * (t_rev - t_q),
+        "restarts": st0["restarts"], "isolation_counts": isolations,
+        "score_rows_per_s": score_rps, "score_rows_per_s_median": smed,
+        "score_fanned_over_single": smed["fanned"] / smed["single"],
+        "backup": {"issued": bcntl.retried_count,
+                   "from": bcntl.remote_side, "ms": 1e3 * t_backup},
+        "refs_s": t_refs,
+        "wall_s": time.perf_counter() - t_phase,
+        "launches": counts.as_dict(), "paged_cuda_launches": counts.paged_cuda,
+    }
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1942,6 +2456,37 @@ def main() -> int:
           f"{json.dumps(r['top_lock_waits'])}; lock-order violations 0; "
           f"launches {r['launches']} ({r['paged_cuda_launches']} paged "
           f"CUDA)", flush=True)
+
+    # -- replicas phase: two replicas behind the port's cluster channel
+    served_replicas = serve_replicas(dev, cfg_b, ctx_b, card)
+    phase_done("serve replicas")
+    r = served_replicas
+    print(f"serve b replicas [{card}]: cluster channel cold "
+          f"{r['cold_tokens_per_s']:.1f} tok/s, warm "
+          f"{r['warm_tokens_per_s']:.1f} tok/s; {REPLICA_PAIRS} alternating "
+          f"warm pairs cluster/one replica median tok/s "
+          f"{json.dumps(r['pair_tokens_per_s_median'])} (all "
+          f"{json.dumps(r['pair_tokens_per_s'])}), cluster/single "
+          f"{r['cluster_over_single']:.3f}, engine steps "
+          f"{json.dumps(r['pair_steps'])} at mean ms "
+          f"{json.dumps(r['pair_mean_step_ms'])}; warm hit tokens per replica "
+          f"{json.dumps(r['warm_hit_tokens_per_replica'])} (cold "
+          f"{json.dumps(r['cold_hit_tokens_per_replica'])}), least warm "
+          f"prefix hit {r['warm_min_prefix_hit']}", flush=True)
+    print(f"serve b replicas quarantine [{card}]: crash -> quarantine "
+          f"{r['crash_to_quarantine_ms']:.1f} ms, -> first token on the "
+          f"survivor {r['quarantine_to_first_survivor_token_ms']:.1f} ms, "
+          f"quarantine -> revival {r['quarantine_to_revival_ms']:.1f} ms, "
+          f"restarts {r['restarts']}, isolation counts "
+          f"{json.dumps(r['isolation_counts'])}", flush=True)
+    print(f"serve b replicas score [{card}]: {SCORE_FAN_PAIRS} alternating "
+          f"pairs, median rows/s {json.dumps(r['score_rows_per_s_median'])}"
+          f" (all {json.dumps(r['score_rows_per_s'])}), fanned/single "
+          f"{r['score_fanned_over_single']:.3f}; backups issued "
+          f"{r['backup']['issued']} (answered by {r['backup']['from']} in "
+          f"{r['backup']['ms']:.1f} ms); phase wall {r['wall_s']:.1f} s "
+          f"(references {r['refs_s']:.1f} s); launches {r['launches']} "
+          f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
     print(f"phase seconds [{card}]: {json.dumps(phase_s)}", flush=True)
 
     def entry(name, source, replaces, rows, main_row):
@@ -1949,7 +2494,8 @@ def main() -> int:
         err = max(r["max_abs_err"] for r in rows)
         launches = sum(r["launches"][name] for r in
                        served + speculative + [served_rpc, served_control,
-                                               served_host])
+                                               served_host,
+                                               served_replicas])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "max_abs_diff": err,
@@ -1974,7 +2520,8 @@ def main() -> int:
               "ptxas": ptxas, "sass": sass, "kernels": kernels,
               "serving": served, "speculative": speculative,
               "rpc_serving": served_rpc, "control_serving": served_control,
-              "host_path_serving": served_host, "phase_s": phase_s,
+              "host_path_serving": served_host,
+              "replicas_serving": served_replicas, "phase_s": phase_s,
               "native_build_s": cbuild.build_seconds,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,

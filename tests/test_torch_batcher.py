@@ -33,12 +33,22 @@ from brpc_tpu_torch import errors, fault, serving
 from brpc_tpu_torch.bvar import exposed_variables
 from brpc_tpu_torch.kvcache import KVCacheStore
 from brpc_tpu_torch.models import runner as T
+from brpc_tpu_torch.policy import health_check
 from brpc_tpu_torch.serving import DynamicBatcher, register_serving
 
 from testutil import wait_until
 from test_torch_runner import JCFG, JPARAMS, TCFG, _tparams
 
 CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _retire_health_probes():
+    """A client whose server this module stops marks that endpoint for
+    the port's health check: retire the probes when the module ends."""
+    yield
+    time.sleep(0.1)      # a socket may fail just after its server stopped
+    health_check.reset_all()
 
 
 def _sum_fn():

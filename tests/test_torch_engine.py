@@ -205,13 +205,15 @@ def test_engine_rejects_mismatched_store_and_device():
 def test_port_runs_without_jax_or_brpc_tpu():
     """In a fresh interpreter: importing the port (its speculative
     module, its RPC front, its Serving service, the batcher, the
-    supervisor, tensorframe, bvar and fault too), serving one CPU
-    request through a speculative engine, one ``Serving.Generate`` over
-    loopback through the port's own server and channel (the engine
-    behind an ``EngineSupervisor``), and one ``Serving.ScoreT`` through
-    a ``DynamicBatcher`` over the runner leaves jax and the JAX package
-    out of sys.modules; the only native core mapped is the port's own
-    build."""
+    supervisor, tensorframe, bvar and fault, the client policies and the
+    combo channels too), serving one CPU request through a speculative
+    engine, one ``Serving.Generate`` over loopback through the port's
+    own server and channel (the engine behind an ``EngineSupervisor``
+    with an endpoint to quarantine), and one ``Serving.ScoreT`` through
+    a ``DynamicBatcher`` over the runner, called through a
+    ``prefix_affinity`` cluster channel and a ``ParallelChannel``,
+    leaves jax and the JAX package out of sys.modules; the only native
+    core mapped is the port's own build."""
     code = textwrap.dedent("""
         import json, sys, threading
         import numpy as np
@@ -219,6 +221,13 @@ def test_port_runs_without_jax_or_brpc_tpu():
         import brpc_tpu_torch.rpc as rpc
         import brpc_tpu_torch.bvar, brpc_tpu_torch.fault
         import brpc_tpu_torch.rpc.tensorframe
+        import brpc_tpu_torch.butil.doubly_buffered
+        import brpc_tpu_torch.policy.cluster_recover_policy
+        import brpc_tpu_torch.policy.naming
+        import brpc_tpu_torch.rpc.combo_channels
+        from brpc_tpu_torch.butil.endpoint import EndPoint
+        from brpc_tpu_torch.policy import health_check
+        from brpc_tpu_torch.policy.circuit_breaker import global_breaker
         from brpc_tpu_torch.serving import (DynamicBatcher,
             EngineSupervisor, ScoreClient)
         from brpc_tpu_torch.models import (TransformerConfig,
@@ -236,7 +245,10 @@ def test_port_runs_without_jax_or_brpc_tpu():
         toks, done = [], threading.Event()
         eng.submit([1, 2, 3], 2, toks.append, lambda e: done.set())
         assert done.wait(60) and len(toks) == 2, toks
-        sup = EngineSupervisor(lambda: eng, store=store)
+        sup = EngineSupervisor(lambda: eng, store=store,
+                               endpoint=EndPoint("127.0.0.1", 1),
+                               quarantine_after=3)
+        assert sup.stats()["quarantined"] is False
         batcher = DynamicBatcher(runner, max_batch_size=2,
                                  length_buckets=(8,), dtype=np.int32)
         server = rpc.Server()
@@ -261,9 +273,17 @@ def test_port_runs_without_jax_or_brpc_tpu():
         assert resp["accepted"] and closed.wait(60), (resp, msgs)
         assert [m["token"] for m in msgs if "token" in m] == toks, msgs
         assert msgs[-1] == {"done": True}, msgs
-        y = ScoreClient(rpc.Channel(f"127.0.0.1:{server.port}",
-                                    timeout_ms=30000)).score([1, 2, 3])
+        cluster = rpc.Channel(f"list://127.0.0.1:{server.port}",
+                              timeout_ms=30000,
+                              load_balancer="prefix_affinity")
+        y = ScoreClient(cluster).score([1, 2, 3])
         assert y.shape == (3,) and int(y[-1]) == toks[0], (y, toks)
+        fan = rpc.ParallelChannel().add_channel(cluster)
+        out = fan.call_sync("Serving", "Score", {"x": [1, 2, 3]},
+                            serializer="json")
+        assert [int(v) for v in out[0]["y"]] == [int(v) for v in y], out
+        assert global_breaker() is not None
+        assert not health_check.broken_endpoints()
         server.stop(); server.join(); sup.close(); batcher.close()
         cores = sorted({ln.split()[-1].rsplit("/", 1)[-1]
                         for ln in open("/proc/self/maps")

@@ -27,6 +27,7 @@ from brpc_tpu.rpc import meta as RM
 from brpc_tpu.rpc import serialization as RS
 import brpc_tpu_torch.rpc as rpc
 from brpc_tpu_torch import errors
+from brpc_tpu_torch.policy import health_check
 from brpc_tpu_torch.rpc import meta as PM
 from brpc_tpu_torch.rpc import serialization as PS
 from brpc_tpu_torch.rpc.channel import CallManager
@@ -35,6 +36,15 @@ from brpc_tpu_torch.rpc.stream import StreamRegistry
 from testutil import wait_until
 
 SEEDS = range(6)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _retire_health_probes():
+    """A client whose server this module stops marks that endpoint for
+    the port's health check: retire the probes when the module ends."""
+    yield
+    time.sleep(0.1)      # a socket may fail just after its server stopped
+    health_check.reset_all()
 
 
 def _random_meta_fields(seed):

@@ -41,6 +41,7 @@ from brpc_tpu.serving.service import register_serving as ref_register
 import brpc_tpu_torch.rpc as rpc
 from brpc_tpu_torch import errors
 from brpc_tpu_torch.models import runner as T
+from brpc_tpu_torch.policy import health_check
 from brpc_tpu_torch.serving import (DecodeEngine, DynamicBatcher,
                                     EngineSupervisor, ScoreClient,
                                     register_serving)
@@ -58,6 +59,15 @@ def port_oracle(prompt: tuple, n: int) -> list:
     """The port's dense oracle (held against the JAX package's by
     test_torch_runner.py)."""
     return T.dense_generate(_tparams(), TCFG, list(prompt), n, device=CPU)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _retire_health_probes():
+    """A client whose server this module stops marks that endpoint for
+    the port's health check: retire the probes when the module ends."""
+    yield
+    time.sleep(0.1)      # a socket may fail just after its server stopped
+    health_check.reset_all()
 
 
 class _Port:

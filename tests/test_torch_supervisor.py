@@ -2,7 +2,8 @@
 against the JAX package.
 
 Counterparts of ``tests/test_supervisor.py``'s crash, wedge, give-up,
-ladder, brownout and claim-retry tests, on a port engine over a port
+flapping-quarantine, ladder, brownout and claim-retry tests, on a port
+engine over a port
 runner at ``TransformerConfig()`` (parameters from the JAX package by
 ``params_from_jax``), on the CPU.  Every expected stream is the JAX
 package's greedy decode: its ``dense_forward``, teacher-forced over
@@ -28,6 +29,10 @@ import pytest
 from brpc_tpu.models import runner as R
 from brpc_tpu.serving.ladder import OverloadLadder as RefLadder
 from brpc_tpu_torch import errors, fault
+from brpc_tpu_torch.butil.endpoint import str2endpoint
+from brpc_tpu_torch.policy import health_check as HC
+from brpc_tpu_torch.policy.circuit_breaker import global_breaker
+from brpc_tpu_torch.policy.load_balancer import PrefixAffinityLB, ServerNode
 from brpc_tpu_torch.models import runner as T
 from brpc_tpu_torch.rpc.controller import Controller
 from brpc_tpu_torch.serving import (DecodeEngine, DynamicBatcher,
@@ -36,6 +41,7 @@ from brpc_tpu_torch.serving.ladder import (OverloadLadder,
                                            apply_level_to_components)
 
 from test_torch_runner import JCFG, JPARAMS, TCFG, _tparams
+from testutil import wait_until
 
 CPU = "cpu"
 PARAMS = _tparams()
@@ -249,10 +255,35 @@ class TestCrashRecovery:
             _close(sup, store)
 
     def test_endpoint_quarantine_is_refused(self):
-        """Quarantine needs the channel-level circuit breaker, which the
-        port does not have: any endpoint is refused up front."""
-        with pytest.raises(ValueError):
-            EngineSupervisor(lambda: None, endpoint="127.0.0.1:1")
+        """Below ``quarantine_after`` crashes the endpoint is refused
+        quarantine: one crash adds one to the breaker's isolation count,
+        and the endpoint stays selectable."""
+        victim = str2endpoint("127.0.0.1:41010")
+        breaker = global_breaker()
+        iso0 = breaker.isolation_count(victim)
+        store = _store("tsup_qr_once")
+        sup = EngineSupervisor(
+            _factory(store, "tsup_qr_once_eng"), store=store,
+            heartbeat_deadline_s=30.0, check_interval_s=0.02,
+            quarantine_after=3, endpoint=victim, ladder=CALM_LADDER,
+            name="tsup_qr_once")
+        try:
+            _warm(sup)
+            plan = fault.FaultPlan(12).on(fault.STEP, fault.ERROR, times=1)
+            with fault.injected(plan):
+                sinks = _submit_wave(sup, _prompts(1), NEW)
+                assert sinks[0][0].wait(60)
+            assert sinks[0][2] == [None]
+            st = sup.stats()
+            assert st["restarts"] == 1
+            assert breaker.isolation_count(victim) == iso0 + 1
+            assert not HC.is_broken(victim)
+            assert st["quarantined"] is False
+            assert st["endpoint"] == "127.0.0.1:41010"
+        finally:
+            _close(sup, store)
+            with breaker._mu:
+                breaker._isolation_count.pop(victim, None)
 
 
     def test_concurrent_submitters_across_a_crash_exactly_once(self):
@@ -298,6 +329,63 @@ class TestCrashRecovery:
         finally:
             sys.setswitchinterval(old)
             _close(sup, store)
+
+
+class TestFlappingQuarantine:
+    def test_repeated_crashes_quarantine_endpoint_and_remap_share(
+            self, monkeypatch):
+        """Crashes feed the port's circuit breaker; past
+        ``quarantine_after`` the replica's endpoint is marked broken, and
+        prefix_affinity remaps ONLY the quarantined replica's share of
+        prefixes.  The stream across the three crashes is the JAX
+        package's greedy decode."""
+        monkeypatch.setattr(HC, "health_check_interval_s", 0.02)
+        eps = [str2endpoint(f"127.0.0.1:{41000 + i}") for i in range(3)]
+        victim = eps[0]
+        lb = PrefixAffinityLB()
+        lb.reset_servers([ServerNode(ep) for ep in eps])
+        rng = np.random.default_rng(5)
+        prefixes = [rng.integers(0, TCFG.vocab, 4).tolist()
+                    for _ in range(60)]
+        before = {tuple(p): lb.select_for_prompt(p) for p in prefixes}
+        assert set(before.values()) == set(eps), "ring did not spread"
+        store = _store("tsup_qr")
+        sup = EngineSupervisor(
+            _factory(store, "tsup_qr_eng"), store=store,
+            heartbeat_deadline_s=30.0, check_interval_s=0.02,
+            max_restarts=6, quarantine_after=3, endpoint=victim,
+            ladder=CALM_LADDER, name="tsup_qr")
+        breaker = global_breaker()
+        try:
+            _warm(sup)
+            iso0 = breaker.isolation_count(victim)
+            # three crashes: one per engine incarnation
+            plan = fault.FaultPlan(17).on(fault.STEP, fault.ERROR, times=3)
+            prompts = _prompts(1, base=30)
+            with fault.injected(plan):
+                sinks = _submit_wave(sup, prompts, NEW)
+                assert sinks[0][0].wait(60)
+            assert sinks[0][2] == [None]
+            assert_jax_greedy(prompts, [sinks[0][1]])
+            st = sup.stats()
+            assert st["restarts"] == 3
+            assert breaker.isolation_count(victim) >= iso0 + 3
+            assert HC.is_broken(victim)
+            assert st["quarantined"] is True
+            after = {tuple(p): lb.select_for_prompt(p) for p in prefixes}
+            for key, ep in before.items():
+                if ep != victim:
+                    assert after[key] == ep, \
+                        "healthy replica's prefix remapped"
+                else:
+                    assert after[key] != victim, \
+                        "quarantined replica still selected"
+        finally:
+            _close(sup, store)
+            HC.reset_all()
+            with breaker._mu:
+                breaker._isolation_count.pop(victim, None)
+            assert wait_until(lambda: not HC.probe_threads(), timeout=5.0)
 
 
 class TestDegradationLadder:

@@ -46,6 +46,7 @@ from brpc_tpu_torch.bvar.default_variables import (_cpu_seconds, _fd_count,
                                                    _thread_count,
                                                    expose_default_variables)
 from brpc_tpu_torch.models import runner as T
+from brpc_tpu_torch.policy import health_check
 from brpc_tpu_torch.serving import (DecodeEngine, EngineSupervisor,
                                     NGramProposer, register_serving)
 
@@ -66,6 +67,15 @@ class _Probe(Collected):
 
     def dump_and_destroy(self):
         self.sink.append(threading.current_thread().name)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _retire_health_probes():
+    """A client whose server this module stops marks that endpoint for
+    the port's health check: retire the probes when the module ends."""
+    yield
+    time.sleep(0.1)      # a socket may fail just after its server stopped
+    health_check.reset_all()
 
 
 class TestCollector:

@@ -12,6 +12,7 @@
     ``ScoreT``.
 """
 import struct
+import time
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ import brpc_tpu.rpc.tensorframe as ref_tf
 import brpc_tpu_torch.rpc as rpc
 import brpc_tpu_torch.rpc.tensorframe as tf
 from brpc_tpu_torch import errors
+from brpc_tpu_torch.policy import health_check
 from brpc_tpu_torch.rpc.service import Service, method
 from brpc_tpu_torch.serving import ScoreClient
 
@@ -30,6 +32,15 @@ DTYPES = [(1, "<i8", torch.int64), (2, "<f4", torch.float32),
           (5, "|u1", torch.uint8), (6, "|b1", torch.bool),
           (7, "<u8", None), (8, "<f2", torch.float16)]
 SHAPES = [(), (0,), (5,), (3, 4), (2, 3, 2)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _retire_health_probes():
+    """A client whose server this module stops marks that endpoint for
+    the port's health check: retire the probes when the module ends."""
+    yield
+    time.sleep(0.1)      # a socket may fail just after its server stopped
+    health_check.reset_all()
 
 
 def _array(rng, dt, shape):

@@ -34,6 +34,7 @@ from brpc_tpu_torch import errors, fault, rpcz
 from brpc_tpu_torch import serving as serving_mod
 from brpc_tpu_torch.kvcache import KVCacheStore
 from brpc_tpu_torch.models import runner as T
+from brpc_tpu_torch.policy import health_check
 from brpc_tpu_torch.rpc import meta as M
 from brpc_tpu_torch.serving import (DecodeEngine, DynamicBatcher,
                                     EngineSupervisor, register_serving)
@@ -43,6 +44,15 @@ from test_torch_native_hotpath import StepRunner
 from test_torch_runner import JCFG, JPARAMS, TCFG, _tparams
 
 CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _retire_health_probes():
+    """A client whose server this module stops marks that endpoint for
+    the port's health check: retire the probes when the module ends."""
+    yield
+    time.sleep(0.1)      # a socket may fail just after its server stopped
+    health_check.reset_all()
 
 
 @pytest.fixture(autouse=True)
