@@ -35,6 +35,17 @@ Named injection sites in the port's RPC and serving code:
                        loop's heartbeat while the loop keeps running,
                        which is what a wedged loop looks like to the
                        supervisor's watchdog)
+    psserve.lookup     error  (psserve/service.py: a Lookup/LookupT
+                       sub-call fails before the gather)
+    psserve.update     error  (psserve/service.py: an Update/UpdateT
+                       sub-call fails before the apply, stage="pre", or
+                       its ack is dropped after it, stage="post"; the
+                       retry must dedup by update_id)
+    psserve.opt_apply  error  (psserve/service.py: the same two stages
+                       around the fused optimizer apply)
+    train.update_wave  error  (train/trainer.py: a trainer's update wave
+                       fails; the trainer replays it with its
+                       update_token)
 
 Disabled (the default), a site costs one module-attribute check,
 ``if fault.ENABLED:``.  Enabled, ``hit(site)`` consults the installed
@@ -78,6 +89,10 @@ BATCH = "serving.batch"
 STEP = "serving.step"
 SPEC_VERIFY = "serving.spec_verify"
 HEARTBEAT = "serving.heartbeat"
+PS_LOOKUP = "psserve.lookup"
+PS_UPDATE = "psserve.update"
+PS_OPT_APPLY = "psserve.opt_apply"
+UPDATE_WAVE = "train.update_wave"
 
 REFUSE = "refuse"        # connect: raise ConnectionError
 RESET = "reset"          # send: fail the socket mid-call (ECONNRESET)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
@@ -135,9 +136,49 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      -> first token on the survivor and -> revival times, Score rows/s,
      backups and the phase's launches;
  10. after every serving phase, no native emit ring alive beyond the
-     baseline (``native_path.tokring_live``); prints ``{"kernels":
-     [...]}``, the card line, and as the LAST line
-     ``{"ok": true, "device": {...}}``.
+     baseline (``native_path.tokring_live``);
+ 11. flagship train step: the parameter-server model
+     (``models/parameter_server.py``) at the width of the repo's own TPU
+     run (vocab 32768, d_model 1024, d_ff 4096, 8 layers, seq 1024,
+     batch 8), f32 master weights from a seed on the card, bf16 compute,
+     TF32 off: step 1's loss and gradients at bf16 against the same step
+     at f32 (loss within 1e-3 of its value, all gradients as one vector
+     within 5e-2 of their norm), then 10 ``train_step``s (lr 0.1) on the
+     fixed example batch, whose loss must fall from step 1 to step 10;
+     prints the warm step's ms (CUDA events), tokens/s, TFLOP/s against
+     the bf16 bound (6.18 TFLOP a step at 989 TFLOP/s), and the device's
+     busy share and top kernels of a profiled step;
+ 12. PS fleet: the flagship's ``embed`` (32768 x 1024 f32, x100 and
+     rounded to integers so that no order of float additions can change
+     a bit) on 4 ``EmbeddingShardServer``s on the card, each behind its
+     own port ``Server`` with ``register_psserve`` (key buckets up to
+     4096), a ``PartitionChannel`` of 4 and a tensorframe ``PSClient``
+     in front; 8192-key waves (one flagship batch's tokens) with
+     integer grads: the lookup equals the dense table, a plain update,
+     an sgdm update and an Adam update leave the fleet's rows and slots
+     bit-equal to ``oracle_apply`` on a dense copy on the card, the Adam
+     wave replayed under its ``update_token`` acks the original versions
+     and changes nothing, no stale read; prints lookups/s and waves/s
+     (client-timed p50/p99) and, at one shard's shapes, the device ms,
+     CUDA launches and bytes bound of the gather, the scatter-add and
+     ``fused_apply`` per kind at the 4096 bucket;
+ 13. trainer through the wire: ``DataParallelTrainer`` (vocab 1024,
+     d_model 32, d_ff 64, 2 layers, seq 16, batch 8; 2 shards, 4
+     workers, Adam lr 0.01, 8 steps, ``eval_every=4``): the Pull-based
+     eval loss falls, no stale read, 32 waves; again with 3
+     ``fault.UPDATE_WAVE`` failures and 2 dropped acks after the fused
+     apply (``fault.PS_OPT_APPLY``, stage post): every wave applied
+     exactly once (each shard's version = its updates + pushes, one
+     fused apply per wave); then bench.py's training rung, 3
+     alternating pairs of 2 s of ``_send_wave`` from 4 workers at vocab
+     65536 (2048-key Adam waves), ``wire`` against
+     ``pull_compute_push`` (updates/s and their ratio), and one JSON
+     ``Pull`` of ``w_out`` at that width, which is why the trainer runs
+     at vocab 1024 (its dense params ride JSON every step);
+
+and prints ``{"kernels": [...]}`` (K1 and K2: the PS and training
+phases run torch ops only), the card line, and as the LAST line
+``{"ok": true, "device": {...}}``.
 
 Any failed check, build or launch exits non-zero before the result.
 TF32 is off for every f32 matmul and convolution.  The full record of
@@ -524,6 +565,20 @@ def sass_counts(kbuild):
 
 # ---- serving phase ----------------------------------------------------------
 
+def dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_events(prof):
+    """The profile's device-side rows (kernels, copies, fills) by name.
+    Only those: a host operator's row (``aten::mm``) carries its kernels'
+    device time as well, so summing every row counts each kernel twice."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+
+
 def profile_window(fn):
     """Run ``fn`` under ``torch.profiler`` and return the device's busy
     share of the window's wall time and its top kernels by device time
@@ -539,12 +594,7 @@ def profile_window(fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    events = device_events(prof)
     busy_us = sum(dev_us(e) for e in events)
     if not busy_us:
         return out, {"wall_s": wall, "device_busy_share": "not measured"}
@@ -2190,6 +2240,458 @@ def serve_replicas(dev, cfg, ctx, card):
     }
 
 
+# ---- PS and training phases: the flagship train step, the shard fleet,
+# the trainer through the wire -------------------------------------------
+
+# the flagship PS model at the width of the repo's own TPU run
+# (``session4_flagship_train_step`` in BENCH_DEVICE_SESSION_r05.json)
+FLAGSHIP = dict(vocab=32768, d_model=1024, d_ff=4096, n_layers=8,
+                seq=1024, batch=8)
+TRAIN_STEPS = 10
+TRAIN_LR = 0.1
+# step 1 at bf16 against the same step at f32: the loss within 1e-3 of
+# its value, the gradients (all parameters as one vector) within 5e-2 of
+# their norm (bf16 keeps 8 bits; a mid-width CPU run of the same
+# comparison measured 1e-5 and 8e-3)
+STEP_TOL = {"loss_rel": 1e-3, "grad_rel": 5e-2}
+PS_SHARDS = 4
+PS_BUCKETS = (8, 32, 128, 512, 4096)
+PS_TIMED = 10        # timed lookups and waves of the fleet phase
+# the trainer phase: bench.py's training rung (vocab 65536, d 32, 2
+# shards, 4 workers, Adam lr 0.01, 2048-key waves) for the wave pairs;
+# the two trainer runs at TRAINER_VOCAB, because their dense Pull/Push
+# ride JSON: w_out is d x vocab floats each way every worker step, and
+# one JSON Pull of it at vocab 65536 takes ~0.8 s on an H100 machine's
+# host (~1 minute a run)
+TRAINER_VOCAB = 1024
+WAVE_VOCAB = 65536
+WAVE_KEYS = 2048
+WAVE_PAIRS = 3
+WAVE_WINDOW_S = 2.0
+
+
+def flagship_flops(cfg):
+    """Operations of one train step: the forward's products (per layer
+    x@wqk, q@x^T, scores@x, x@wup, h@wdown; then x@w_out) times 3 with
+    the backward."""
+    t = cfg.batch * cfg.seq
+    d, f, s, v = cfg.d_model, cfg.d_ff, cfg.seq, cfg.vocab
+    layer = 2 * t * d * d + 2 * 2 * t * s * d + 2 * 2 * t * d * f
+    return 3 * (cfg.n_layers * layer + 2 * t * d * v)
+
+
+def flagship_embed():
+    """The flagship's ``embed`` as step 11 draws it (seed 21), on the
+    host: ``init_params`` draws ``embed`` first from its generator."""
+    import torch
+    gen = torch.Generator().manual_seed(21)
+    return (torch.randn((FLAGSHIP["vocab"], FLAGSHIP["d_model"]),
+                        generator=gen) * 0.02).numpy()
+
+
+def train_flagship(dev, card):
+    """Step 11 (see the module docstring): the flagship PS model's train
+    step at full width."""
+    import torch
+
+    import brpc_tpu_torch.models.parameter_server as psm
+    cfg = psm.PSConfig(**FLAGSHIP)
+    torch.cuda.reset_peak_memory_stats()
+    params = psm.init_params(cfg, seed=21, device=dev)
+    tokens, targets = psm.make_example_batch(cfg, seed=22, device=dev)
+    # step 1 at bf16 and at f32 (TF32 off)
+    l16, g16 = psm.loss_and_grads(params, tokens, targets, torch.bfloat16)
+    l32, g32 = psm.loss_and_grads(params, tokens, targets, torch.float32)
+    num = sum(float(((g16[k] - g32[k]) ** 2).sum()) for k in g32)
+    den = sum(float((g32[k] ** 2).sum()) for k in g32)
+    loss_rel = abs(float(l16) - float(l32)) / abs(float(l32))
+    grad_rel = (num / den) ** 0.5
+    per_param = {k: float((g16[k] - g32[k]).norm() / g32[k].norm())
+                 for k in g32}
+    del g16, g32
+    check(loss_rel <= STEP_TOL["loss_rel"],
+          f"flagship step 1: bf16 loss {float(l16)} vs f32 {float(l32)}")
+    check(grad_rel <= STEP_TOL["grad_rel"],
+          f"flagship step 1: bf16 grads off f32 by {grad_rel:.3g}")
+    losses, step_ms = [], []
+    p = params
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p, loss = psm.train_step(p, tokens, targets, lr=TRAIN_LR)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    check(all(np.isfinite(losses)), f"flagship losses {losses}")
+    check(losses[-1] < losses[0],
+          f"flagship: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    _, prof = profile_window(
+        lambda: psm.train_step(p, tokens, targets, lr=TRAIN_LR))
+    launches, _ = launches_per_call(
+        lambda: psm.train_step(p, tokens, targets, lr=TRAIN_LR))
+    warm_ms = float(np.median(step_ms[1:]))
+    flops = flagship_flops(cfg)
+    return {
+        "config": dict(FLAGSHIP), "card": card, "lr": TRAIN_LR,
+        "loss_step1_bf16": float(l16), "loss_step1_f32": float(l32),
+        "loss_rel_diff": loss_rel, "grad_rel_diff": grad_rel,
+        "grad_rel_diff_per_param": per_param, "tolerance": STEP_TOL,
+        "losses": losses, "step_ms": step_ms, "warm_step_ms": warm_ms,
+        "tokens_per_s": cfg.batch * cfg.seq / (warm_ms / 1e3),
+        "tflop_per_step": flops / 1e12,
+        "achieved_tflops": flops / (warm_ms / 1e3) / 1e12,
+        "bound_ms": flops / PEAK_FLOPS["bfloat16"] * 1e3,
+        "bound_by": "operations", "bound_rate": RATE["bfloat16"],
+        "share_of_bound": flops / PEAK_FLOPS["bfloat16"] * 1e3 / warm_ms,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "cuda_launches_per_step": launches, "profile": prof}
+
+
+def device_ms(fn, dev):
+    """Device time of one call of ``fn`` with a cold L2: calls each
+    after a 128 MiB ``bitwise_not_`` that evicts the 50 MB L2 (a shard's
+    table would otherwise stay in it between calls, which traffic to
+    four shards does not allow), replayed from a CUDA graph
+    (:func:`measure`), less the flushes alone."""
+    import torch
+    flush = torch.zeros(128 << 20, dtype=torch.int8, device=dev)
+
+    def flushed():
+        flush.bitwise_not_()
+        fn()
+
+    both, _ = measure(flushed)
+    alone, _ = measure(flush.bitwise_not_)
+    return both - alone
+
+
+def ps_device_rows(dev, embed):
+    """The PS path's device programs at one shard's shapes: the row
+    gather and scatter-add of one shard's share of an 8192-key wave
+    (2048 keys) and ``fused_apply`` per kind at the 4096 bucket, each
+    with its device ms (cold L2), eager ms (back to back, as issued
+    from Python), CUDA launches per call and bytes bound (keys, grads
+    and the gathered rows/slots read and written once)."""
+    import torch
+
+    import brpc_tpu_torch.train.optimizer as opt
+    rows_n, d = embed.shape[0] // PS_SHARDS, embed.shape[1]
+    rng = np.random.default_rng(31)
+    table = torch.from_numpy(np.array(embed[:rows_n])).to(dev)
+    out = []
+
+    def row(name, fn, nbytes):
+        dms = device_ms(fn, dev)
+        n, names = launches_per_call(fn)
+        eager = time_ms(fn)
+        b = bound(nbytes, 0, "float32", dms)
+        out.append({"program": name, "device_ms": dms, "eager_ms": eager,
+                    "cuda_launches_per_call": n, "device_ops": names[:12],
+                    "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                    "share_of_bound": b["share_of_bound"]})
+
+    k2048 = torch.from_numpy(rng.integers(0, rows_n, 2048)).to(dev)
+    g2048 = torch.from_numpy(rng.integers(-3, 4, (2048, d)).astype(
+        np.float32)).to(dev)
+    row(f"gather t[k] [2048] -> [2048, {d}]", lambda: table[k2048],
+        2048 * 8 + 2 * 2048 * d * 4)
+    scratch = table.clone()
+    row(f"scatter-add t.index_add_ [2048, {d}]",
+        lambda: scratch.index_add_(0, k2048, g2048),
+        2048 * 8 + 2048 * d * 4 + 2 * 2048 * d * 4)
+    b = PS_BUCKETS[-1]
+    keys = torch.from_numpy(rng.integers(0, rows_n, b)).to(dev)
+    grads = torch.from_numpy(rng.integers(-3, 4, (b, d)).astype(
+        np.float32)).to(dev)
+    valid = torch.ones((b,), dtype=torch.float32, device=dev)
+    for kind, n_state in (("sgdm", 2), ("adam", 3)):
+        state = [table.clone()] + [torch.zeros_like(table)
+                                   for _ in range(n_state - 1)]
+        hp = (0.5, 0.5)
+        if kind == "adam":
+            state.append(torch.zeros((rows_n,), dtype=torch.float32,
+                                     device=dev))
+            hp = (0.5, 0.5, 0.75, 1.0)
+        fn = opt.fused_apply(kind)
+        nbytes = b * 8 + b * 4 + b * d * 4 + 2 * n_state * b * d * 4 + \
+            (2 * b * 4 if kind == "adam" else 0)
+        row(f"fused_apply {kind} bucket {b} x {d}",
+            lambda fn=fn, st=state, hp=hp: fn(*st, keys, grads, valid, *hp),
+            nbytes)
+    return out
+
+
+def ps_fleet(dev, card, embed):
+    """Step 12 (see the module docstring): the flagship table on four
+    shard servers, bit-equal to the dense oracle."""
+    import torch
+
+    from brpc_tpu_torch.psserve.client import _next_uid_seq
+    from brpc_tpu_torch.train.optimizer import OptimizerSpec, oracle_apply
+    vocab, d = embed.shape
+    # integer-valued (the flagship's draws x 100, rounded): every float
+    # addition of integer grads is exact, so the atomic order of the
+    # card's scatter-add cannot change a bit
+    table = np.round(embed * 100).astype(np.float32)
+    shards, cli, close = ps_servers(dev, PS_SHARDS, vocab, d, PS_BUCKETS,
+                                    "smoke_ps", table)
+    rng = np.random.default_rng(41)
+
+    def wave():
+        return (rng.integers(0, vocab, FLAGSHIP["batch"] * FLAGSHIP["seq"]),
+                rng.integers(-3, 4, (FLAGSHIP["batch"] * FLAGSHIP["seq"], d)
+                             ).astype(np.float32))
+
+    def fleet_rows():
+        return np.concatenate([sh.snapshot_rows() for sh in shards])
+
+    def fleet_slots(spec):
+        snaps = [sh.snapshot_slots() for sh in shards]
+        return {k: np.concatenate([s[k] for s in snaps])
+                for k in spec.slot_names()}
+
+    try:
+        keys, _ = wave()
+        check(np.array_equal(cli.lookup(keys), table[keys]),
+              "ps fleet: lookup differs from the dense table")
+        keys, grads = wave()
+        cli.update(keys, grads)
+        want = torch.from_numpy(table).to(dev).index_add_(
+            0, torch.from_numpy(keys).to(dev),
+            torch.from_numpy(grads).to(dev)).cpu().numpy()
+        check(np.array_equal(fleet_rows(), want),
+              "ps fleet: plain update differs from the dense scatter-add")
+        slots = {"m": np.zeros_like(table)}
+        sgdm = OptimizerSpec("sgdm", lr=0.5, momentum=0.5)
+        adam = OptimizerSpec("adam", lr=0.5, beta1=0.5, beta2=0.75,
+                             eps=1.0)
+        acks = None
+        for spec in (sgdm, adam):
+            keys, grads = wave()
+            tok = _next_uid_seq()
+            acks = cli.update(keys, grads, update_token=tok,
+                              optimizer=spec)
+            if spec.kind == "adam":
+                slots.setdefault("v", np.zeros_like(table))
+                slots.setdefault("t", np.zeros((vocab,), np.float32))
+            want, slots = oracle_apply(want, slots, keys, grads, spec,
+                                       device=dev)
+            check(np.array_equal(fleet_rows(), want),
+                  f"ps fleet: {spec.kind} rows differ from oracle_apply")
+            got = fleet_slots(spec)
+            for k in spec.slot_names():
+                check(np.array_equal(got[k], slots[k]),
+                      f"ps fleet: {spec.kind} slot {k} differs from "
+                      f"oracle_apply")
+        # the adam wave again under its token: acked with the original
+        # versions, nothing applied
+        vers = [sh.version for sh in shards]
+        again = cli.update(keys, grads, update_token=tok, optimizer=adam)
+        check(again == acks and [sh.version for sh in shards] == vers,
+              f"ps fleet: replayed token acked {again}, first {acks}")
+        check(np.array_equal(fleet_rows(), want),
+              "ps fleet: a replayed token changed the rows")
+        # timed: lookups and adam waves of 8192 keys, client-timed
+        look_ms, wave_ms = [], []
+        for _ in range(PS_TIMED):
+            keys, grads = wave()
+            t0 = time.perf_counter()
+            cli.lookup(keys)
+            look_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            cli.update(keys, grads, optimizer=adam)
+            wave_ms.append((time.perf_counter() - t0) * 1e3)
+        check(cli.n_stale_reads == 0,
+              f"ps fleet: {cli.n_stale_reads} stale reads")
+        stats = [sh.stats() for sh in shards]
+    finally:
+        close()
+    programs = ps_device_rows(dev, table)
+    keys_n = FLAGSHIP["batch"] * FLAGSHIP["seq"]
+    return {
+        "card": card, "table": [vocab, d], "shards": PS_SHARDS,
+        "wave_keys": keys_n, "key_buckets": list(PS_BUCKETS),
+        "lookup_ms": {"p50": pct(look_ms, 50), "p99": pct(look_ms, 99)},
+        "wave_ms": {"p50": pct(wave_ms, 50), "p99": pct(wave_ms, 99)},
+        "lookups_per_s": 1e3 / pct(look_ms, 50),
+        "waves_per_s": 1e3 / pct(wave_ms, 50),
+        "keys_per_s_lookup": keys_n * 1e3 / pct(look_ms, 50),
+        "stale_reads": cli.n_stale_reads,
+        "versions": [s["version"] for s in stats],
+        "dup_updates": [s["dup_updates"] for s in stats],
+        "programs": programs}
+
+
+def ps_servers(dev, n, vocab, dim, buckets, prefix, table):
+    """``n`` shard servers of a ``vocab`` x ``dim`` table on ``dev``, each
+    behind its own port ``Server``, and a tensorframe ``PSClient`` over a
+    ``PartitionChannel`` in front.  Returns (shards, client, close)."""
+    import brpc_tpu_torch.rpc as rpc
+    from brpc_tpu_torch import psserve
+    servers, svcs, shards = [], [], []
+    pc = rpc.PartitionChannel(n)
+    for i in range(n):
+        sh = psserve.EmbeddingShardServer(i, n, vocab, dim, table=table,
+                                          key_buckets=buckets,
+                                          name=f"{prefix}_ps", device=dev)
+        s = rpc.Server()
+        svcs.append(psserve.register_psserve(s, sh, name=f"{prefix}_{i}"))
+        s.start("127.0.0.1", 0)
+        servers.append(s)
+        shards.append(sh)
+        pc.add_partition(i, rpc.Channel(f"127.0.0.1:{s.port}",
+                                        timeout_ms=60_000))
+    cli = psserve.PSClient(pc, vocab=vocab, dim=dim, name=f"{prefix}_cli")
+
+    def close():
+        for svc in svcs:
+            psserve.unregister_psserve(svc)
+        for s in servers:
+            s.stop()
+            s.join()
+    return shards, cli, close
+
+
+def trainer_wire(dev, card):
+    """Step 13 (see the module docstring): DataParallelTrainer through the
+    wire, a faulted run, and bench.py's wave pairs."""
+    import brpc_tpu_torch.fault as fault
+    from brpc_tpu_torch.models.parameter_server import PSConfig
+    from brpc_tpu_torch.train import OptimizerSpec
+    from brpc_tpu_torch.train.trainer import DataParallelTrainer
+    spec = OptimizerSpec("adam", lr=0.01)
+    out = {"card": card}
+
+    def run(label, plan=None):
+        cfg = PSConfig(vocab=TRAINER_VOCAB, d_model=32, d_ff=64,
+                       n_layers=2, seq=16, batch=8)
+        embed0, dense0 = DataParallelTrainer.model_init(cfg, seed=5)
+        shards, cli, close = ps_servers(dev, 2, cfg.vocab, 32,
+                                        (8, 32, 128, 512), label, embed0)
+        try:
+            tr = DataParallelTrainer(cli, cfg, n_workers=4, steps=8,
+                                     optimizer=spec, eval_every=4, seed=5,
+                                     retry_backoff_s=0.01, name=label,
+                                     device=dev)
+            tr.seed_dense(dense0)
+            if plan is None:
+                rep = tr.run()
+            else:
+                with fault.injected(plan):
+                    rep = tr.run()
+            stats = [sh.stats() for sh in shards]
+        finally:
+            close()
+        check(rep["loss_final"] < rep["loss_first"],
+              f"trainer {label}: loss did not fall {rep['loss_history']}")
+        check(rep["stale_reads"] == 0,
+              f"trainer {label}: {rep['stale_reads']} stale reads")
+        check(rep["waves"] == 4 * 8,
+              f"trainer {label}: {rep['waves']} waves, not 32")
+        for s in stats:
+            # exactly once: one version per applied wave and push, one
+            # fused apply per wave (each wave's 128 keys reach both
+            # shards), retries served from the applied set
+            check(s["version"] == s["updates"] + s["pushes"]
+                  and s["opt_updates"] == rep["waves"],
+                  f"trainer {label}: shard {s['shard_index']} version "
+                  f"{s['version']}, updates {s['updates']}, pushes "
+                  f"{s['pushes']}, opt updates {s['opt_updates']}")
+        rep["shard_stats"] = [{k: s[k] for k in
+                               ("version", "updates", "opt_updates",
+                                "pushes", "dup_updates")} for s in stats]
+        return rep
+
+    out["run"] = run("smoke_tr")
+    plan = fault.FaultPlan(13).on(fault.UPDATE_WAVE, fault.ERROR,
+                                  times=3).on(
+        fault.PS_OPT_APPLY, fault.ERROR, times=2,
+        match=lambda ctx: ctx.get("stage") == "post")
+    out["faulted"] = run("smoke_trf", plan)
+    fr = out["faulted"]
+    check(plan.injected.get(fault.UPDATE_WAVE) == 3
+          and plan.injected.get(fault.PS_OPT_APPLY) == 2,
+          f"trainer faulted: injected {plan.injected}")
+    check(fr["wave_retries"] >= 3
+          and sum(s["dup_updates"] for s in fr["shard_stats"]) >= 2,
+          f"trainer faulted: retries {fr['wave_retries']}, shards "
+          f"{fr['shard_stats']}")
+    out["injected"] = dict(plan.injected)
+
+    # bench.py's rung 1: _send_wave from 4 workers against the big
+    # table, wire (fused on the shard) against pull_compute_push (slots
+    # at the trainer), in alternating pairs
+    cfg = PSConfig(vocab=WAVE_VOCAB, d_model=32, d_ff=64, n_layers=2,
+                   seq=16, batch=8)
+    per_shard = WAVE_KEYS // 2
+    _, cli, close = ps_servers(dev, 2, WAVE_VOCAB, 32,
+                               (8, 32, 128, 512, per_shard), "smoke_wave",
+                               None)
+    rng = np.random.default_rng(0)
+    bounds = [(i * WAVE_VOCAB // 2, (i + 1) * WAVE_VOCAB // 2)
+              for i in range(2)]
+
+    def mk_keys():
+        ks = np.concatenate([rng.integers(lo, hi, per_shard)
+                             for lo, hi in bounds]).astype(np.int64)
+        return rng.permutation(ks)
+
+    keysets = [mk_keys() for _ in range(8)]
+    gradsets = [rng.standard_normal((WAVE_KEYS, 32)).astype(np.float32)
+                for _ in range(4)]
+
+    def trial(mode, k):
+        tr = DataParallelTrainer(cli, cfg, n_workers=4, steps=1,
+                                 optimizer=spec, mode=mode, seed=k,
+                                 name=f"smoke_wave_{mode}{k}", device=dev)
+        clis = [tr._clone_client(w) for w in range(4)]
+        tr._send_wave(clis[0], 0, 0, keysets[0], gradsets[0])
+        stop_t = time.monotonic() + WAVE_WINDOW_S
+        counts = [0] * 4
+
+        def worker(w):
+            i = 0
+            while time.monotonic() < stop_t:
+                tr._send_wave(clis[w], w, i, keysets[(w + i) % 8],
+                              gradsets[(w + i) % 4])
+                counts[w] += 1
+                i += 1
+
+        t0 = time.monotonic()
+        ts = [threading.Thread(target=worker, args=(w,)) for w in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        check(not any(t.is_alive() for t in ts),
+              f"wave trial {mode}: a worker did not finish")
+        return sum(counts) / (time.monotonic() - t0)
+
+    try:
+        ups = {"wire": [], "pull_compute_push": []}
+        for k in range(WAVE_PAIRS):
+            order = ("wire", "pull_compute_push") if k % 2 == 0 else \
+                ("pull_compute_push", "wire")
+            for mode in order:
+                ups[mode].append(trial(mode, k))
+        # one dense Pull of w_out at this width: why the trainer runs
+        # above use a smaller vocabulary
+        cli.push("w_out", np.zeros((32, WAVE_VOCAB), np.float32))
+        t0 = time.perf_counter()
+        cli.pull("w_out")
+        out["dense_pull_w_out_ms"] = (time.perf_counter() - t0) * 1e3
+        check(cli.n_stale_reads == 0, "wave pairs: stale reads")
+    finally:
+        close()
+    med = {m: float(np.median(v)) for m, v in ups.items()}
+    out["wave_pairs"] = {"updates_per_s": ups, "median": med,
+                         "wire_over_pcp": med["wire"]
+                         / med["pull_compute_push"]}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2487,6 +2989,71 @@ def main() -> int:
           f"{r['backup']['ms']:.1f} ms); phase wall {r['wall_s']:.1f} s "
           f"(references {r['refs_s']:.1f} s); launches {r['launches']} "
           f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
+
+    # -- the PS and training phases: no K1/K2 on this path (torch ops)
+    flagship = train_flagship(dev, card)
+    phase_done("train flagship")
+    r = flagship
+    print(f"train flagship [{card}]: vocab 32768 d 1024 ff 4096 L8 S1024 "
+          f"B8, bf16 on f32 masters, lr {r['lr']}: losses "
+          f"{json.dumps([round(x, 5) for x in r['losses']])}; step 1 bf16 "
+          f"vs f32: loss {r['loss_step1_bf16']:.6f} / "
+          f"{r['loss_step1_f32']:.6f} (rel {r['loss_rel_diff']:.3g}, "
+          f"tolerance {STEP_TOL['loss_rel']}), grads rel "
+          f"{r['grad_rel_diff']:.3g} (tolerance {STEP_TOL['grad_rel']}; "
+          f"per param {json.dumps({k: round(v, 5) for k, v in r['grad_rel_diff_per_param'].items()})}); "
+          f"warm step {r['warm_step_ms']:.3f} ms, "
+          f"{r['tokens_per_s']:.0f} tokens/s, "
+          f"{r['achieved_tflops']:.1f} TFLOP/s of {r['tflop_per_step']:.3f} "
+          f"TFLOP a step; bound {r['bound_ms']:.3f} ms ({r['bound_rate']}), "
+          f"{100 * r['share_of_bound']:.1f}% of bound; "
+          f"{r['cuda_launches_per_step']} CUDA launches a step; peak "
+          f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; device busy "
+          f"(profiled step) {r['profile']['device_busy_share']}; top "
+          f"{json.dumps(r['profile'].get('top_kernels', [])[:5])}",
+          flush=True)
+    fleet = ps_fleet(dev, card, flagship_embed())
+    phase_done("ps fleet")
+    r = fleet
+    print(f"ps fleet [{card}]: 32768x1024 f32 on {r['shards']} shards, "
+          f"{r['wave_keys']}-key waves: lookup == dense, plain/sgdm/adam "
+          f"== oracle_apply bit for bit, replayed token acked, stale reads "
+          f"{r['stale_reads']}; lookup ms p50/p99 "
+          f"{r['lookup_ms']['p50']:.2f}/{r['lookup_ms']['p99']:.2f} "
+          f"({r['lookups_per_s']:.1f} lookups/s, "
+          f"{r['keys_per_s_lookup']:.0f} keys/s), adam wave ms p50/p99 "
+          f"{r['wave_ms']['p50']:.2f}/{r['wave_ms']['p99']:.2f} "
+          f"({r['waves_per_s']:.1f} waves/s)", flush=True)
+    for row in r["programs"]:
+        print(f"ps program [{card}] {row['program']}: device ms "
+              f"{row['device_ms']} eager {row['eager_ms']:.4f} CUDA "
+              f"launches/call {row['cuda_launches_per_call']} bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']}) share "
+              f"{100 * row['share_of_bound']:.1f}%", flush=True)
+    trainer = trainer_wire(dev, card)
+    phase_done("trainer wire")
+    r = trainer
+    print(f"trainer wire [{card}]: vocab {TRAINER_VOCAB} d 32 L2 S16 B8, 2 "
+          f"shards, 4 workers, adam lr 0.01, 8 steps: loss "
+          f"{r['run']['loss_first']:.5f} -> {r['run']['loss_final']:.5f} "
+          f"(history {json.dumps([round(x, 5) for x in r['run']['loss_history']])}), "
+          f"waves {r['run']['waves']}, stale reads "
+          f"{r['run']['stale_reads']}, {r['run']['elapsed_s']:.2f} s; "
+          f"faulted run (injected {json.dumps(r['injected'])}): waves "
+          f"{r['faulted']['waves']}, wave retries "
+          f"{r['faulted']['wave_retries']}, shards "
+          f"{json.dumps(r['faulted']['shard_stats'])}", flush=True)
+    wp = r["wave_pairs"]
+    print(f"trainer waves [{card}]: vocab {WAVE_VOCAB} d 32, 2 shards, 4 "
+          f"workers, {WAVE_KEYS}-key adam waves, {WAVE_PAIRS} alternating "
+          f"pairs of {WAVE_WINDOW_S} s: updates/s wire "
+          f"{json.dumps([round(x, 2) for x in wp['updates_per_s']['wire']])}"
+          f" pull_compute_push "
+          f"{json.dumps([round(x, 2) for x in wp['updates_per_s']['pull_compute_push']])}"
+          f"; medians {json.dumps({k: round(v, 2) for k, v in wp['median'].items()})}"
+          f", wire/pcp {wp['wire_over_pcp']:.3f}; one JSON Pull of w_out "
+          f"[32, {WAVE_VOCAB}] {r['dense_pull_w_out_ms']:.1f} ms",
+          flush=True)
     print(f"phase seconds [{card}]: {json.dumps(phase_s)}", flush=True)
 
     def entry(name, source, replaces, rows, main_row):
@@ -2521,7 +3088,9 @@ def main() -> int:
               "serving": served, "speculative": speculative,
               "rpc_serving": served_rpc, "control_serving": served_control,
               "host_path_serving": served_host,
-              "replicas_serving": served_replicas, "phase_s": phase_s,
+              "replicas_serving": served_replicas,
+              "train_flagship": flagship, "ps_fleet": fleet,
+              "trainer_wire": trainer, "phase_s": phase_s,
               "native_build_s": cbuild.build_seconds,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,

@@ -488,13 +488,16 @@ class TestFaultSites:
         assert plan.injected == {fault.FRAME: 1}
         assert find_exposed("fault_injected_stream_frame").get_value() \
             == c0 + 1
-        assert s._remote_consumed > 0     # a later feedback arrived
+        # a later feedback arrived (on the client's IO thread, which may
+        # not have read it yet when the server saw the close)
+        assert wait_until(lambda: s._remote_consumed > 0, timeout=5)
 
     def test_lost_feedback_returns_credit_at_the_next(self, _clean):
         plan = fault.FaultPlan(6).on(fault.FEEDBACK, fault.DROP, times=1)
         s = self._stream_through(_clean, plan)
         assert plan.injected == {fault.FEEDBACK: 1}
-        assert s._remote_consumed > 0     # the next feedback arrived
+        # the next feedback arrived (read on the client's IO thread)
+        assert wait_until(lambda: s._remote_consumed > 0, timeout=5)
 
 
 # ---- exactly once under racing backups and retries ------------------------

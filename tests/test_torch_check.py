@@ -6,8 +6,8 @@ passes here, through their constructor arguments and a ``Repo`` whose
 (nothing in ``brpc_tpu/check`` is edited):
 
   * ``LockOrderPass`` and ``JitHotPathPass`` over ``brpc_tpu_torch``;
-  * ``LockHygienePass`` over the port's serving and KV-cache modules:
-    every lock there is a named ``InstrumentedLock``;
+  * ``LockHygienePass`` over the port's serving, KV-cache and psserve
+    modules: every lock there is a named ``InstrumentedLock``;
   * bounded-decode over the port's wire parsers (``rpc/tensorframe.py``,
     ``meta.py``, ``serialization.py``, ``stream.py``).
 
@@ -45,7 +45,8 @@ def _passes(monkeypatch):
         "lock-order": LockOrderPass(subdirs=(PORT,)),
         "jit-hot-path": JitHotPathPass(subdirs=(PORT,)),
         "lock-hygiene": LockHygienePass(prefixes=(f"{PORT}/serving/",
-                                                  f"{PORT}/kvcache/")),
+                                                  f"{PORT}/kvcache/",
+                                                  f"{PORT}/psserve/")),
         "bounded-decode": bounded_decode.BoundedDecodePass(
             modules=bounded_decode.PARSER_MODULES),
     }

@@ -205,13 +205,15 @@ def test_engine_rejects_mismatched_store_and_device():
 def test_port_runs_without_jax_or_brpc_tpu():
     """In a fresh interpreter: importing the port (its speculative
     module, its RPC front, its Serving service, the batcher, the
-    supervisor, tensorframe, bvar and fault, the client policies and the
-    combo channels too), serving one CPU request through a speculative
+    supervisor, tensorframe, bvar and fault, the client policies, the
+    combo channels, the PS shards, the training plane and the PS model
+    too), serving one CPU request through a speculative
     engine, one ``Serving.Generate`` over loopback through the port's
     own server and channel (the engine behind an ``EngineSupervisor``
     with an endpoint to quarantine), and one ``Serving.ScoreT`` through
     a ``DynamicBatcher`` over the runner, called through a
-    ``prefix_affinity`` cluster channel and a ``ParallelChannel``,
+    ``prefix_affinity`` cluster channel and a ``ParallelChannel``, and
+    one Adam ``PS.UpdateT`` and ``PS.LookupT`` through a ``PSClient``,
     leaves jax and the JAX package out of sys.modules; the only native
     core mapped is the port's own build."""
     code = textwrap.dedent("""
@@ -225,6 +227,9 @@ def test_port_runs_without_jax_or_brpc_tpu():
         import brpc_tpu_torch.policy.cluster_recover_policy
         import brpc_tpu_torch.policy.naming
         import brpc_tpu_torch.rpc.combo_channels
+        import brpc_tpu_torch.psserve, brpc_tpu_torch.train
+        import brpc_tpu_torch.models.parameter_server
+        from brpc_tpu_torch.train.trainer import DataParallelTrainer
         from brpc_tpu_torch.butil.endpoint import EndPoint
         from brpc_tpu_torch.policy import health_check
         from brpc_tpu_torch.policy.circuit_breaker import global_breaker
@@ -283,6 +288,21 @@ def test_port_runs_without_jax_or_brpc_tpu():
                             serializer="json")
         assert [int(v) for v in out[0]["y"]] == [int(v) for v in y], out
         assert global_breaker() is not None
+        from brpc_tpu_torch import psserve
+        from brpc_tpu_torch.train import OptimizerSpec
+        shard = psserve.EmbeddingShardServer(0, 1, 16, 4, device="cpu")
+        ps = rpc.Server()
+        psserve.register_psserve(ps, shard)
+        ps.start("127.0.0.1", 0)
+        pc = rpc.PartitionChannel(1)
+        pc.add_partition(0, rpc.Channel(f"127.0.0.1:{ps.port}",
+                                        timeout_ms=30000))
+        pcli = psserve.PSClient(pc, vocab=16, dim=4)
+        pcli.update([1, 2, 1], np.ones((3, 4), np.float32),
+                    optimizer=OptimizerSpec("adam", lr=0.1))
+        assert pcli.lookup([1]).shape == (1, 4)
+        assert shard.stats()["opt_slots"] == ["m", "t", "v"]
+        ps.stop(); ps.join()
         assert not health_check.broken_endpoints()
         server.stop(); server.join(); sup.close(); batcher.close()
         cores = sorted({ln.split()[-1].rsplit("/", 1)[-1]
