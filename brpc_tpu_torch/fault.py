@@ -46,6 +46,16 @@ Named injection sites in the port's RPC and serving code:
     train.update_wave  error  (train/trainer.py: a trainer's update wave
                        fails; the trainer replays it with its
                        update_token)
+    dcn.migrate_send   error  (migrate/plane.py: a page migration fails on
+                       the source before anything leaves the process;
+                       its pins are released)
+    dcn.migrate_recv   error  (migrate/plane.py: the destination refuses
+                       an Offer before it splices anything)
+    migrate.splice     error  (kvcache/store.py: import_prefix fails
+                       mid-splice, per page; the whole import rolls back)
+    migrate.prefix_fetch error  (migrate/plane.py: a pull-based prefix
+                       fetch fails before its PushTo; the caller
+                       recomputes)
 
 Disabled (the default), a site costs one module-attribute check,
 ``if fault.ENABLED:``.  Enabled, ``hit(site)`` consults the installed
@@ -93,6 +103,10 @@ PS_LOOKUP = "psserve.lookup"
 PS_UPDATE = "psserve.update"
 PS_OPT_APPLY = "psserve.opt_apply"
 UPDATE_WAVE = "train.update_wave"
+MIGRATE_SEND = "dcn.migrate_send"
+MIGRATE_RECV = "dcn.migrate_recv"
+MIGRATE_SPLICE = "migrate.splice"
+PREFIX_FETCH = "migrate.prefix_fetch"
 
 REFUSE = "refuse"        # connect: raise ConnectionError
 RESET = "reset"          # send: fail the socket mid-call (ECONNRESET)

@@ -139,6 +139,10 @@ class PagePool:
                 raise RuntimeError(f"ref on dead page {page}")
             page.refs += 1
 
+    def refs(self, page: KVPage) -> int:
+        with self._mu:
+            return page.refs
+
     def unref(self, page: KVPage) -> None:
         """Drop one reference; at zero the page joins the free list, and
         a block whose pages are all free returns to the block pool."""
@@ -202,6 +206,27 @@ class PagePool:
                              f" bytes, got {tuple(t.shape)} {t.dtype}")
         return t.to(self.device)
 
+    def write(self, page: KVPage, slot: int, tokens) -> None:
+        """Write token ids into consecutive slots of `page` from `slot`:
+        each slot's first 4 bytes the id (int32 little-endian), the rest
+        zero -- the reference's token-id stand-in payload, for tests and
+        tools that need recognisable page contents without a model."""
+        n = len(tokens)
+        if slot < 0 or slot + n > self.page_tokens:
+            raise ValueError(f"write [{slot},{slot + n}) exceeds "
+                             f"page_tokens={self.page_tokens}")
+        rows = np.zeros((n, self.kv_bytes_per_token), np.uint8)
+        rows[:, :4] = np.asarray(tokens, "<i4").view(np.uint8).reshape(n, 4)
+        self.write_slots_batch([(page, slot, rows)])
+
+    def read(self, page: KVPage, count: int | None = None) -> np.ndarray:
+        """The token ids in `page`'s first `count` slots (default all):
+        the inverse of :meth:`write` (a host read; tests and tools)."""
+        count = self.page_tokens if count is None else int(count)
+        raw = self.read_raw(page)[:count * self.kv_bytes_per_token]
+        return raw.reshape(count, self.kv_bytes_per_token)[:, :4] \
+            .copy().view("<i4").ravel()
+
     def write_slots(self, page: KVPage, slot: int, rows) -> None:
         """Write per-token K/V payloads into consecutive slots of `page`
         starting at `slot`."""
@@ -236,9 +261,31 @@ class PagePool:
         export payload, unaffected by later writes to the page."""
         return self.arena()[self._flat(page)].clone()
 
+    def stack_pages(self, pages) -> torch.Tensor:
+        """The pages' bytes as ONE device tensor ``[n, page_bytes]``:
+        one gather from the arena (the migration export's page stack,
+        copied to the host once for the whole migration)."""
+        idx = torch.tensor([self._flat(p) for p in pages],
+                           dtype=torch.int64).to(self.device)
+        return self.arena().index_select(0, idx)
+
     def read_raw(self, page: KVPage) -> np.ndarray:
         """Host copy of the page's raw bytes."""
         return self.arena()[self._flat(page)].cpu().numpy()
+
+    def as_pages(self, data) -> torch.Tensor:
+        """``data`` (a tensor or array of ``n`` whole pages of raw
+        bytes) as uint8 ``[n, page_bytes]`` on this pool's device, in
+        one copy."""
+        t = data
+        if not isinstance(t, torch.Tensor):
+            a = np.ascontiguousarray(data, np.uint8)
+            # a wire payload is a read-only view: torch needs its own copy
+            t = torch.from_numpy(a if a.flags.writeable else a.copy())
+        if t.dtype != torch.uint8 or t.numel() % self.page_bytes:
+            raise ValueError(f"raw pages are {tuple(t.shape)} x {t.dtype},"
+                             f" page_bytes={self.page_bytes} uint8")
+        return t.reshape(-1, self.page_bytes).to(self.device)
 
     def write_raw(self, page: KVPage, data) -> None:
         """Write a whole page of raw bytes into `page`, bit-exact."""

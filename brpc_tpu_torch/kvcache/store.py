@@ -21,7 +21,17 @@ through :meth:`KVCacheStore.write_kv`.  The lifecycle the engine drives:
                     radix tree, every seq ref drops;
   detach(seq)    -> crash recovery: retire a live sequence committing its
                     full pages to the tree, and pin them (a RecoveryPin)
-                    until the request is re-admitted.
+                    until the request is re-admitted;
+  import_prefix(tokens, payloads) / acquire_pages(tokens)
+                 -> the KV migration plane's two ends: a peer's raw
+                    pages spliced as committed radix nodes (all or
+                    nothing), and a committed prefix's full pages pinned
+                    for export.
+
+Streaming commit (``commit_live_pages=True``): every page a live
+sequence fills with real K/V (``kv_filled`` passes its end) joins the
+radix tree at once instead of at retire, so a standby's page shipper can
+export a generation's finished pages while it still decodes.
 
 K/V rows arrive as tensors on the store's device and stay there: the
 reference ships host numpy rows, this store writes device rows in place.
@@ -42,7 +52,7 @@ import re
 import threading
 from typing import Sequence
 
-from .. import rpcz
+from .. import fault, rpcz
 from ..butil.lockprof import InstrumentedLock
 from ..bvar import Adder, PassiveStatus, exposed_variables, find_exposed
 from .pages import KVPage, PagePool
@@ -60,6 +70,12 @@ class _Count:
 
     def __get__(self, obj, cls=None):
         return self if obj is None else getattr(obj, self.attr).get_value()
+
+
+class MissingShippedPrefix(ValueError):
+    """An incremental migration import (``import_prefix(have > 0)``)
+    found the peer's already-shipped prefix chunks evicted: the peer
+    must fall back to a full send."""
 
 
 class RecoveryPin:
@@ -91,7 +107,7 @@ class KVSeq:
     ``kv_filled`` is how many leading positions hold real K/V."""
 
     __slots__ = ("seq_id", "tokens", "pages", "prefill_from", "retired",
-                 "kv_filled", "span")
+                 "kv_filled", "committed_full", "span")
 
     def __init__(self):
         self.seq_id = next(_seq_ids)
@@ -100,6 +116,9 @@ class KVSeq:
         self.prefill_from = 0
         self.retired = False
         self.kv_filled = 0
+        # full pages already committed live (commit_live_pages): each
+        # boundary commits only the new chunk
+        self.committed_full = 0
         # the owning generation's rpcz span: KV events annotate it
         self.span = rpcz.NULL_SPAN
 
@@ -125,16 +144,18 @@ class KVCacheStore:
     speculated = _Count()        # draft tokens appended
     rolled_back = _Count()       # draft pages released
     detached = _Count()          # sequences handed over by detach()
+    imported = _Count()          # migrated pages the tree retained
 
     def __init__(self, pool=None, device=None, *, page_bytes: int = 1024,
                  page_tokens: int = 16, max_blocks: int = 8,
-                 name: str = "kv"):
+                 commit_live_pages: bool = False, name: str = "kv"):
         self.pagepool = PagePool(pool, device, page_bytes=page_bytes,
                                  page_tokens=page_tokens,
                                  max_blocks=max_blocks, name=name)
         self.device = self.pagepool.device
         self.radix = RadixTree(self.pagepool, name=name)
         self.page_tokens = self.pagepool.page_tokens
+        self.commit_live_pages = bool(commit_live_pages)
         self.name = name
         self._mu = InstrumentedLock("kvcache.store", threading.RLock())
         self._live = 0
@@ -152,9 +173,7 @@ class KVCacheStore:
         self._speculated = Adder(f"kvcache_{safe}_speculated_tokens")
         self._rolled_back = Adder(f"kvcache_{safe}_rolled_back_pages")
         self._detached = Adder(f"kvcache_{safe}_detached")
-        # KV migration (its page import) is not ported: the counter
-        # stays 0 and keeps the store's variable names the reference's
-        Adder(f"kvcache_{safe}_imported_pages")
+        self._imported = Adder(f"kvcache_{safe}_imported_pages")
         PassiveStatus(self.hit_rate).expose(f"kvcache_{safe}_hit_rate")
         PassiveStatus(self.pagepool.pages_in_use).expose(
             f"kvcache_{safe}_pages_in_use")
@@ -272,6 +291,7 @@ class KVCacheStore:
             if final:
                 for _, seq, pos, n, _ in staged:
                     seq.kv_filled = max(seq.kv_filled, pos + n)
+                    self._commit_live(seq)
         return failures
 
     def fork(self, seq: KVSeq) -> KVSeq:
@@ -344,7 +364,9 @@ class KVCacheStore:
             if upto > len(seq.tokens):
                 raise ValueError(
                     f"commit_draft to {upto} > {len(seq.tokens)} tokens")
-            seq.kv_filled = max(seq.kv_filled, upto)
+            if upto > seq.kv_filled:
+                seq.kv_filled = upto
+                self._commit_live(seq)
 
     def retire(self, seq: KVSeq, *, cache: bool = True) -> None:
         """End a sequence.  With ``cache=True`` its full materialised
@@ -402,6 +424,73 @@ class KVCacheStore:
                     f"({len(pinned) * self.page_tokens} tokens)")
             return RecoveryPin(self, pinned, len(pinned) * self.page_tokens)
 
+    def import_prefix(self, tokens: Sequence[int], payloads, *,
+                      have: int = 0, span=None) -> int:
+        """The migration splice: install `payloads` -- one raw page of
+        K/V bytes per full-page chunk of `tokens` past the first `have`
+        (``[n, page_bytes]`` uint8: an array, a tensor or a list of
+        rows), exported by a peer store -- as COMMITTED radix nodes, so
+        the next ``admit`` of a prompt opening with `tokens` prefix-hits
+        state this store never computed.  ``have`` is the incremental
+        offset: the peer believes the first `have` chunks are already
+        here; if eviction dropped any, :class:`MissingShippedPrefix`.
+
+        All or nothing: pages are allocated and spliced first, then the
+        whole chain is inserted under the store lock (the `have` check
+        atomic with the insert); any failure (pressure with a dry tree,
+        a bad payload, ``fault.MIGRATE_SPLICE``) returns every fresh page
+        to the pool.  Chunks the tree already holds keep their pages.
+        Returns the pages the tree newly retained."""
+        tokens = [int(t) for t in tokens]
+        nfull = len(tokens) // self.page_tokens
+        have = int(have)
+        n = len(payloads)
+        if have < 0 or have >= nfull or nfull == 0 or n != nfull - have:
+            raise ValueError(
+                f"import_prefix: {n} payload pages for chunks "
+                f"{have}..{nfull} ({len(tokens)} tokens at "
+                f"{self.page_tokens}/page)")
+        # one host-to-device copy for the whole migration; each page is
+        # then a device-to-device copy
+        payloads = self.pagepool.as_pages(payloads)
+        fresh: list = []
+        try:
+            for i in range(n):
+                if fault.ENABLED and fault.hit(
+                        fault.MIGRATE_SPLICE, store=self.name,
+                        page=have + i) is not None:
+                    raise MemoryError("injected migration splice failure")
+                page = self._alloc_page(span)
+                fresh.append(page)
+                self.pagepool.write_raw(page, payloads[i])
+            with self._mu:
+                pre: list = []
+                if have:
+                    # the peer skipped these as already shipped; between
+                    # its last send and now eviction may have dropped them
+                    pre = self.radix.match(tokens, max_chunks=have)
+                    if len(pre) < have:
+                        raise MissingShippedPrefix(
+                            f"incremental import expected {have} resident "
+                            f"chunks, found {len(pre)}")
+                retained = self.radix.insert(
+                    tokens[:nfull * self.page_tokens], list(pre) + fresh)
+        except BaseException:
+            # rollback: the tree never saw a partial chain
+            for page in fresh:
+                self.pagepool.unref(page)
+            raise
+        # drop the allocation refs: retained pages live on the tree's
+        for page in fresh:
+            self.pagepool.unref(page)
+        self._imported.add(retained)
+        if span is not None and span is not rpcz.NULL_SPAN:
+            span.annotate(
+                f"kv import: {retained}/{n} migrated pages spliced as "
+                f"committed radix nodes (chunks {have}..{nfull}, "
+                f"{nfull * self.page_tokens} tokens)")
+        return retained
+
     # ---- internals (caller holds _mu) ----
 
     def _cacheable_full(self, seq: KVSeq) -> int:
@@ -409,6 +498,18 @@ class KVCacheStore:
         materialised prefix (the last generated token's slot holds no
         K/V until it is stepped)."""
         return min(len(seq.tokens), seq.kv_filled) // self.page_tokens
+
+    def _commit_live(self, seq: KVSeq) -> None:
+        """Streaming commit: every newly filled page joins the radix tree
+        (the tree takes its own ref; the sequence keeps its), capped at
+        the materialised prefix."""
+        if not self.commit_live_pages:
+            return
+        nfull = self._cacheable_full(seq)
+        if nfull > seq.committed_full:
+            self.radix.insert(seq.tokens[:nfull * self.page_tokens],
+                              seq.pages[:nfull])
+            seq.committed_full = nfull
 
     def _copy_on_write(self, seq: KVSeq, pi: int, before: str) -> KVPage:
         """Replace seq's shared page ``pi`` by a private copy, ahead of
@@ -492,6 +593,11 @@ class KVCacheStore:
                 self.pagepool.ref(p)
             return len(pages) * self.page_tokens, list(pages)
 
+    def acquire_pages(self, tokens: Sequence[int]) -> tuple:
+        """``acquire_prefix(tokens, full_pages=True)``: the migration
+        export's pin, covering a final exactly-full page too."""
+        return self.acquire_prefix(tokens, full_pages=True)
+
     def release(self, pages) -> None:
         """Drop the refs taken by :meth:`acquire_prefix`."""
         with self._mu:
@@ -537,6 +643,7 @@ class KVCacheStore:
                 "admitted": self.admitted,
                 "retired": self.retired,
                 "detached": self.detached,
+                "imported_pages": self.imported,
                 "forks": self.forks,
                 "speculated_tokens": self.speculated,
                 "rolled_back_pages": self.rolled_back,

@@ -215,13 +215,14 @@ def dense_generate(params: dict, cfg: TransformerConfig,
 
 def make_store_for(cfg: TransformerConfig, *, page_tokens: int = 8,
                    max_blocks: int = 8, pool=None, device=None,
+                   commit_live_pages: bool = False,
                    name: str = "kv") -> KVCacheStore:
     """A KVCacheStore whose page slots hold ``cfg``'s packed K/V, on
     ``device`` (default ``cuda``)."""
     return KVCacheStore(pool, device,
                         page_bytes=page_tokens * cfg.kv_bytes_per_token,
                         page_tokens=page_tokens, max_blocks=max_blocks,
-                        name=name)
+                        commit_live_pages=commit_live_pages, name=name)
 
 
 class TransformerRunner(ModelRunner):

@@ -8,18 +8,19 @@ prompt's prefix fingerprint, so repeat prefixes land on the replica
 holding their KV pages).  The hashes, the virtual-node keys and the
 request-code encoding are the JAX package's byte for byte, so a port
 ring over the same servers equals the reference's ring point for point.
-
-Left out (ROADMAP Queue 1 item 5, KV migration): prefix_affinity's
-migration on rebalance, which pushes a remapped prefix's pages to its
-new owner over the ``_kvmig`` service; ``migrate_on_rebalance`` raises.
+prefix_affinity's ``migrate_on_rebalance`` pushes a remapped prefix's
+pages to its new owner over the ``_kvmig`` service (``migrate/``).
 """
 from __future__ import annotations
 
 import bisect
 import hashlib
 import itertools
+import logging
 import random
 import threading
+import time
+from collections import OrderedDict
 from dataclasses import dataclass
 
 from ..butil.doubly_buffered import DoublyBufferedData
@@ -316,6 +317,10 @@ class KetamaLB(ConsistentHashLB):
         return int.from_bytes(digest[:4], "little")
 
 
+# routed prefixes a migrate-on-rebalance balancer remembers (LRU bound)
+_ROUTED_CAP = 1024
+
+
 def prefix_fingerprint(tokens, chunk_tokens: int = 16) -> int:
     """Stable 64-bit fingerprint of a prompt's leading page-aligned
     chunk(s) — the routing key for prefix-affinity balancing.  Prompts
@@ -340,23 +345,123 @@ class PrefixAffinityLB(ConsistentHashLB):
     underneath means replica churn remaps only the departed replica's
     share of prefixes; the rest keep their warm caches.
 
+    MIGRATE ON REBALANCE: with a hook installed by
+    :meth:`migrate_on_rebalance`, the balancer remembers which replica
+    each routed prefix landed on (a bounded LRU of fingerprints); when a
+    ring change remaps a tracked prefix to a NEW owner, the hook fires
+    with ``(tokens, old_ep, new_ep)`` -- the default
+    (``brpc_tpu_torch.migrate.rebalance_pusher``) asks the old owner to
+    push its warm pages to the new one over ``_kvmig``, so the new owner
+    prefix-hits instead of re-prefilling.  Hooks run on a
+    ``migrate``-stage thread; a failing push is counted and the new
+    owner recomputes, never blocking the remap.
+
     Use ``select_server(request_code=prefix_fingerprint(prompt))``, or
     :meth:`select_for_prompt`."""
 
     name = "prefix_affinity"
 
-    def migrate_on_rebalance(self, hook, *,
-                             track_capacity: int = 1024) -> None:
-        raise NotImplementedError(
-            "prefix_affinity's migration on rebalance pushes KV pages over "
-            "the _kvmig service, which the port does not have yet "
-            "(ROADMAP Queue 1 item 5, KV migration)")
+    def __init__(self):
+        super().__init__()
+        self._aff_mu = threading.Lock()
+        # fingerprint -> [longest prompt seen, current owner], ordered
+        # for LRU bounding; filled only while a hook is installed
+        self._routed: "OrderedDict[int, list]" = OrderedDict()
+        self._migrate_hook = None
+        self._migration_threads: list = []
+        self.remaps = 0
+        self.remap_migrations = 0
+        self.remap_failures = 0
+
+    def migrate_on_rebalance(self, hook) -> None:
+        """Install ``hook(tokens, old_ep, new_ep)`` for every tracked
+        prefix a ring change hands to a new owner; ``None`` uninstalls
+        (tracking stops and the table drops)."""
+        with self._aff_mu:
+            self._migrate_hook = hook
+            if hook is None:
+                self._routed.clear()
 
     def select_for_prompt(self, prompt, exclude=None,
                           chunk_tokens: int = 16):
-        return self.select_server(
-            exclude=exclude,
-            request_code=prefix_fingerprint(prompt, chunk_tokens))
+        code = prefix_fingerprint(prompt, chunk_tokens)
+        ep = self.select_server(exclude=exclude, request_code=code)
+        if ep is not None and self._migrate_hook is not None:
+            with self._aff_mu:
+                rec = self._routed.get(code)
+                if rec is None:
+                    self._routed[code] = [[int(t) for t in prompt], ep]
+                    while len(self._routed) > _ROUTED_CAP:
+                        self._routed.popitem(last=False)
+                else:
+                    # the longest prompt seen names the most pages
+                    if len(prompt) > len(rec[0]):
+                        rec[0] = [int(t) for t in prompt]
+                    rec[1] = ep
+                    self._routed.move_to_end(code)
+        return ep
+
+    def _on_servers_changed(self):
+        super()._on_servers_changed()
+        hook = self._migrate_hook
+        if hook is None:
+            return
+        with self._aff_mu:
+            snapshot = [(fp, list(rec[0]), rec[1])
+                        for fp, rec in self._routed.items()]
+        remaps = []
+        for fp, toks, old_ep in snapshot:
+            new_ep = self.select_server(request_code=fp)
+            if new_ep is None or new_ep == old_ep:
+                continue
+            remaps.append((toks, old_ep, new_ep))
+            with self._aff_mu:
+                rec = self._routed.get(fp)
+                if rec is not None:
+                    rec[1] = new_ep
+        if not remaps:
+            return
+        self.remaps += len(remaps)
+        # hooks do network IO: a thread of their own keeps the
+        # membership update fast
+        t = threading.Thread(target=self._run_migrations,
+                             args=(hook, remaps), daemon=True,
+                             name="kv-migrate-rebalance")
+        with self._aff_mu:
+            # keep every live batch: join_migrations waits them all out
+            self._migration_threads = [
+                x for x in self._migration_threads if x.is_alive()]
+            self._migration_threads.append(t)
+        t.start()
+
+    def _run_migrations(self, hook, remaps) -> None:
+        from ..butil import stagetag
+        with stagetag.stage("migrate"):
+            for toks, old_ep, new_ep in remaps:
+                try:
+                    hook(toks, old_ep, new_ep)
+                    self.remap_migrations += 1
+                except Exception:
+                    # the new owner recomputes: degraded, not broken
+                    self.remap_failures += 1
+                    logging.getLogger(__name__).info(
+                        "rebalance migration %s -> %s failed",
+                        old_ep, new_ep, exc_info=True)
+
+    def join_migrations(self, timeout_s: float = 10.0) -> bool:
+        """Wait out every outstanding remap migration batch."""
+        deadline = threading.TIMEOUT_MAX if timeout_s is None \
+            else time.monotonic() + timeout_s
+        with self._aff_mu:
+            threads = list(self._migration_threads)
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+            if t.is_alive():
+                return False
+        with self._aff_mu:
+            self._migration_threads = [
+                x for x in self._migration_threads if x.is_alive()]
+        return True
 
 
 class LocalityAwareLB(LoadBalancer):

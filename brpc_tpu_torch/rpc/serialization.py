@@ -5,22 +5,28 @@ encoding the same bytes:
 
   raw          opaque bytes
   json         dict/list/str/num as compact JSON
+  tensor       numpy arrays as raw C-order bytes plus a dtype/shape
+               header (the DCN envelope's array codec, ``ici/dcn.py``)
   tensorframe  inline scalars and strings plus tensors, decoded as numpy
                views (``rpc/tensorframe.py``)
 
 Compression: gzip, zlib, snappy (the native block-format codec of the
 port's core) and zstd where the ``zstandard`` package is installed.
-The tensor, protobuf, pickle and compact serializers come with the
-slices that use them.
+The protobuf, pickle and compact serializers come with the slices that
+use them.
 """
 from __future__ import annotations
 
 import ctypes
 import gzip as _gzip
 import json
+import struct
 import zlib as _zlib
 from typing import Any
 
+import numpy as np
+
+from ..bvar import Adder
 from . import meta as M
 
 try:
@@ -87,9 +93,95 @@ class TensorFrameSerializer(Serializer):
         return decode_frame(body)
 
 
+# host-side tensor encodes/decodes: a control-only DCN envelope never
+# moves them
+tensor_host_encodes = Adder("tensor_host_encodes")
+tensor_host_decodes = Adder("tensor_host_decodes")
+
+
+class TensorSerializer(Serializer):
+    """ndarray <-> raw bytes + header.  Lists/tuples of arrays supported.
+
+    Header: u8 single flag, u8 count, then per tensor: u8 dtype_len,
+    dtype str, u8 ndim, ndim*u64 shape.  Bodies are concatenated C-order
+    bytes.  The reference's bytes exactly, for the same arrays."""
+
+    name = "tensor"
+
+    def encode(self, obj):
+        arrays = obj if isinstance(obj, (list, tuple)) else [obj]
+        hdr = [struct.pack("<B", len(arrays))]
+        bodies = []
+        tensor_host_encodes.add(1)
+        for a in arrays:
+            a = np.asarray(a)
+            dt = a.dtype.str.encode()
+            hdr.append(struct.pack("<B", len(dt)) + dt)
+            hdr.append(struct.pack("<B", a.ndim) +
+                       struct.pack(f"<{a.ndim}Q", *a.shape))
+            bodies.append(np.ascontiguousarray(a).tobytes())
+        single = not isinstance(obj, (list, tuple))
+        flag = b"\x01" if single else b"\x00"
+        return b"".join(bodies), flag + b"".join(hdr)
+
+    def decode(self, body, tensor_header):
+        if not tensor_header:
+            return body
+        tensor_host_decodes.add(1)
+        try:
+            return self._decode_checked(body, tensor_header)
+        except IndexError as e:
+            # walking past a truncated header is bad input: every
+            # malformed-header path raises ValueError
+            raise ValueError(f"truncated tensor header: {e}")
+
+    def _decode_checked(self, body, tensor_header):
+        single = tensor_header[0] == 1
+        off = 1
+        count = tensor_header[off]
+        off += 1
+        out = []
+        pos = 0
+        for _ in range(count):
+            dlen = tensor_header[off]
+            off += 1
+            try:
+                dt = np.dtype(
+                    tensor_header[off:off + dlen].decode("ascii"))
+            except ValueError:
+                raise
+            except Exception as e:
+                # np.dtype can raise SyntaxError, TypeError, ... on a
+                # hostile spec string: bad input all the same
+                raise ValueError(f"bad dtype in tensor header: {e}")
+            off += dlen
+            ndim = tensor_header[off]
+            off += 1
+            try:
+                shape = struct.unpack_from(f"<{ndim}Q", tensor_header, off)
+            except struct.error as e:
+                raise ValueError(f"truncated tensor header: {e}")
+            off += 8 * ndim
+            # exact element count in Python ints, bounded by the body
+            # before numpy sees it
+            if dt.itemsize == 0:
+                raise ValueError(f"zero-itemsize dtype {dt} in header")
+            cnt = 1
+            for d in shape:
+                cnt *= int(d)
+            if cnt * dt.itemsize > len(body) - pos:
+                raise ValueError(
+                    f"tensor header claims {cnt} x {dt} at offset {pos} "
+                    f"but body has {len(body) - pos} bytes")
+            arr = np.frombuffer(body, dtype=dt, count=cnt, offset=pos)
+            out.append(arr.reshape(shape))
+            pos += cnt * dt.itemsize
+        return out[0] if single and out else out
+
+
 _SERIALIZERS: dict[str, Serializer] = {
     s.name: s for s in (RawSerializer(), JsonSerializer(),
-                        TensorFrameSerializer())}
+                        TensorSerializer(), TensorFrameSerializer())}
 
 
 def get_serializer(name):

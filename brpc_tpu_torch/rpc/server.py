@@ -11,9 +11,10 @@ call: it joins the wire's trace (``trace_id``/``span_id`` of the
 request meta) and inherits its sampling decision
 (``FLAG_TRACE_SAMPLED``), and is the current span while the handler
 runs, so the serving layers' spans nest under it.  ``start`` exposes
-the process default variables (cpu, rss, fds).  Left out (ROADMAP):
-the other protocols on the port (HTTP gets a 404), builtin services
-and the console, auth, interceptors, limiters, tag pools,
+the process default variables (cpu, rss, fds), and with
+``enable_dcn`` registers the ``_dcn`` handshake service.  Left out
+(ROADMAP): the other protocols on the port (HTTP gets a 404), builtin
+services and the console, auth, interceptors, limiters, tag pools,
 ``rpc_dump``, per-method bvar variables, the hotspot sampler and the
 rail.
 """
@@ -42,6 +43,10 @@ class ServerOptions:
     # seconds join() waits for in-flight requests before closing
     # connections
     graceful_quit_timeout_s: float = 5.0
+    # register the _dcn service (the topology handshake, ici/dcn.py) at
+    # start; its Hello reports dcn_device (default cuda)
+    enable_dcn: bool = False
+    dcn_device: Optional[str] = None
 
 
 class MethodStatus:
@@ -116,6 +121,12 @@ class Server:
             raise RuntimeError("already started")
         self._stopping = False
         expose_default_variables()
+        if self.options.enable_dcn:
+            # added before the native registration loop below, so the
+            # _dcn methods ride the same path as every other service
+            from ..ici.dcn import DCN_SERVICE, DcnService
+            if DCN_SERVICE not in self._services:
+                self.add_service(DcnService(self.options.dcn_device))
         t = Transport.instance()
         self._listen_sid, self._port = t.listen_rpc(
             addr, port, self._on_message, self._on_conn_failed,

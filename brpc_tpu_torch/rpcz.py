@@ -93,6 +93,9 @@ class Span:
     # crash-recovery link: the span_id of the pre-crash attempt this
     # span resumes (supervisor re-admission); 0 when not a resumption
     recovered_from: int = 0
+    # migration link: the span_id of the source's migrate span whose
+    # pages this splice installed (0 when not a migration splice)
+    migrated_from: int = 0
     # position in this process's recent-span store, set on landing
     seq: int = 0
 
@@ -125,6 +128,7 @@ class _NullSpan:
     annotations = ()
     sampled = True
     recovered_from = 0
+    migrated_from = 0
     seq = 0
 
     def __setattr__(self, k, v):
@@ -405,6 +409,8 @@ def format_trace(spans: list[Span], indent: str = "  ") -> str:
         pad = indent * depth
         link = f" recovered_from=span {s.recovered_from}" \
             if s.recovered_from else ""
+        if s.migrated_from:
+            link += f" migrated_from=span {s.migrated_from}"
         err = f" err={s.error_code}" if s.error_code else ""
         lines.append(
             f"{pad}+{off}us [{s.kind}] {s.service}.{s.method} "

@@ -669,6 +669,9 @@ class DecodeEngine:
                                 self._prefill_fn_cpu_s * 1e6)
                 self._start_emitter(req)
                 self._touch_beat()      # a long prefill is progress
+            # drop this thread's references to the admitted requests: an
+            # idle loop must not keep a finished request's emit ring alive
+            claimed = req = installed = s = None
             with self._cv:
                 if not self._running:
                     return

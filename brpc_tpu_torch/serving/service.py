@@ -11,7 +11,11 @@ A copy of ``brpc_tpu/serving/service.py``'s ``Serving`` service and
     stream message ``{"token": t}``, then ``{"done": true}`` (with
     ``"error"``/``"error_text"`` when the generation failed) and the
     stream's close.  ``"speculative": false`` opts the request out of a
-    speculative engine's drafts.
+    speculative engine's drafts.  With ``"prefix_holders": [addr, ...]``
+    and a ``prefix_fetcher`` registered, a replica whose cache misses
+    the prompt's full-page prefix first fetches it from a holder
+    (``migrate.make_prefix_fetcher``); a failed fetch falls back to
+    recompute.
   * ``Serving.Score`` -- unary, JSON ``{"x": [numbers...]}`` ->
     ``{"y": [...]}``: the handler defers the RPC into the
     :class:`~brpc_tpu_torch.serving.batcher.DynamicBatcher`, whose
@@ -23,9 +27,8 @@ A copy of ``brpc_tpu/serving/service.py``'s ``Serving`` service and
   :class:`ScoreClient` prefers ``ScoreT`` and downgrades to json
   ``Score``, for good, on ENOMETHOD.
 
-Left out (ROADMAP): the pull-based ``prefix_fetcher`` (KV migration),
-the multi-model ``deployments`` table (model plane) and the chunked
-HTTP generate route.
+Left out (ROADMAP): the multi-model ``deployments`` table (model plane,
+item 7) and the chunked HTTP generate route (item 6).
 """
 from __future__ import annotations
 
@@ -35,15 +38,23 @@ from typing import Optional
 import numpy as np
 
 from .. import errors
+from ..butil.lockprof import InstrumentedLock
 from ..rpc.service import Service, method
 
 
 class ServingService(Service):
     NAME = "Serving"
 
-    def __init__(self, batcher=None, engine=None):
+    def __init__(self, batcher=None, engine=None, prefix_fetcher=None):
         self._batcher = batcher
         self._engine = engine
+        # ``fetch(prompt, holders) -> pages``, usually
+        # migrate.make_prefix_fetcher; may be set after the server
+        # starts (the fetcher needs the server's own address)
+        self.prefix_fetcher = prefix_fetcher
+        self.prefix_fetches = 0
+        self.prefix_fetched_pages = 0
+        self._fetch_mu = InstrumentedLock("serving.prefix_fetch")
 
     @method(request="json", response="json")
     def Score(self, cntl, req):
@@ -121,8 +132,40 @@ class ServingService(Service):
         if "speculative" in req:
             # forwarded only when the client says so
             kw["speculative"] = bool(req["speculative"])
-        rid = engine.submit(prompt, max_new, emit, on_done, **kw)
-        return {"accepted": True, "req_id": rid, "prefix_hit": hit}
+
+        def submit(hit: int) -> dict:
+            rid = engine.submit(prompt, max_new, emit, on_done, **kw)
+            return {"accepted": True, "req_id": rid, "prefix_hit": hit}
+
+        holders = req.get("prefix_holders") or []
+        fetcher = self.prefix_fetcher
+        if (fetcher is not None and holders
+                and store is not None and len(prompt) > 1):
+            full = len(prompt) // store.page_tokens * store.page_tokens
+            if full and hit < full:
+                # the fetch waits on this process's own OfferT: it runs
+                # off the executor (migrate.run_off_executor)
+                from ..migrate.plane import run_off_executor
+                run_off_executor(cntl, lambda: submit(max(
+                    hit, self._fetch(fetcher, store, prompt, holders))),
+                    "prefix_fetch")
+                return None
+        return submit(hit)
+
+    def _fetch(self, fetcher, store, prompt, holders) -> int:
+        """Fetch the prompt's prefix from a holder; the prefix hit after
+        it (0 when the fetch failed: the engine recomputes)."""
+        try:
+            fetched = int(fetcher([int(t) for t in prompt],
+                                  [str(h) for h in holders]))
+        except Exception:
+            return 0
+        if not fetched:
+            return 0
+        with self._fetch_mu:     # fetches finish on their own threads
+            self.prefix_fetches += 1
+            self.prefix_fetched_pages += fetched
+        return int(store.probe(prompt))
 
 
 class ScoreClient:
@@ -159,10 +202,12 @@ class ScoreClient:
         return np.asarray(resp["y"], np.float32)
 
 
-def register_serving(server, batcher=None, engine=None) -> ServingService:
+def register_serving(server, batcher=None, engine=None,
+                     prefix_fetcher=None) -> ServingService:
     """Register the ``Serving`` service on ``server`` (before
     ``server.start()``): ``batcher`` answers Score/ScoreT, ``engine`` (a
-    DecodeEngine or an EngineSupervisor) Generate."""
-    svc = ServingService(batcher, engine)
+    DecodeEngine or an EngineSupervisor) Generate, ``prefix_fetcher``
+    warms a cache miss from the request's ``prefix_holders``."""
+    svc = ServingService(batcher, engine, prefix_fetcher)
     server.add_service(svc)
     return svc

@@ -176,6 +176,48 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      ``Pull`` of ``w_out`` at that width, which is why the trainer runs
      at vocab 1024 (its dense params ride JSON every step);
 
+ 14. KV migration and disaggregated serving, the wide configuration
+     with step 4's weights, seed, prompts and oracle (page_tokens 16: 12
+     full pages, 6 MiB, a 200-token prompt); every replica its own
+     store, ``TransformerRunner``, block pool and ``Server(enable_dcn=
+     True)``.  Migration: the 8 prompts served cold on R0, then
+     ``PageMigrator.migrate``d to R1: every imported page equal to its
+     source byte for byte, R1's ``Serving.Generate`` prefix-hits >= 192
+     tokens with every stream the oracle's, a second migrate ships no
+     new chunk, one ``fault.MIGRATE_SPLICE`` rolls back whole (R1's
+     pages in use unchanged); the page stack's and the splice's device
+     rows.  Prefix fetch: a cold R2 with a ``prefix_fetcher`` serves
+     the prompts cold, then (store cleared) with ``prefix_holders=
+     [R0]``: it fetches, hits >= 192, same streams; TTFT of both, all 8
+     streams at once (each fetch waits on this process's own ``OfferT``
+     and ``PushTo``: the fetch and the push run off the executor).  Rebalance: a ``PrefixAffinityLB`` over {R0}
+     with ``migrate_on_rebalance(rebalance_pusher())`` routes step 9's
+     4 prefix families (2 prompts each) to R0; adding R1 pushes the
+     remapped families' pages, whose warm Generates on R1 hit >= 144.
+     Disagg across two processes: the decode replica (store,
+     ``EngineSupervisor``, ``register_disagg_decode``) in a child
+     process (``brpc_tpu_torch.examples.disagg --role decode``) that
+     builds the same weights from the seed, the prefill replica
+     (``register_disagg_prefill(runner=)``) here, a
+     ``DisaggCoordinator``: one generation under ``fault.MIGRATE_SEND``
+     takes the recompute fallback, then 8 concurrent 32-token
+     generations, every stream the oracle's, the decode side's hit
+     covering the migrated pages, the paged kernel launched here; a
+     profiled pass of the family prompts.  Failover: a primary with
+     ``commit_live_pages=True`` under ``StandbySync`` to a standby (an
+     ``EngineSupervisor``), its engine crashed mid-generation
+     (``fault.STEP``) and closed; the client's ``assume_stream`` with
+     its cursor completes the stream exactly once, equal to the oracle,
+     the resume prefix-hitting shipped pages; a second assume refused.
+     After every part: no live sequence, every pool at its baseline
+     after ``clear()``, no DCN offer pinned (vacuous until the port has
+     a transfer fabric: nothing on the host-serialized path offers),
+     and (at the end) the native rings at their baseline.  Prints migrate ms p50/p99 a prompt,
+     pages/s, MiB/s, splice p99, the host-serialized bytes and zero-copy
+     count (0: the port has no transfer fabric), the fetch's TTFT
+     against a cold prefill's, disagg TTFT and tokens/s beside step 6's
+     RPC numbers, crash -> first resumed token, and the device rows;
+
 and prints ``{"kernels": [...]}`` (K1 and K2: the PS and training
 phases run torch ops only), the card line, and as the LAST line
 ``{"ok": true, "device": {...}}``.
@@ -707,8 +749,8 @@ def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
           bpool.stats()["classes"] == free0,
           f"{label}: the page pool did not return to its baseline")
     toks = N_REQUESTS * NEW_TOKENS
-    ctx = {"params": params, "prompts": prompts, "oracle": oracle,
-           "geometry": {"page_tokens": page_tokens, "num_slots": num_slots,
+    ctx = {"params": params, "seed": seed, "prompts": prompts,
+           "oracle": oracle, "geometry": {"page_tokens": page_tokens, "num_slots": num_slots,
                         "max_pages": max_pages, "max_blocks": max_blocks,
                         "buckets": buckets}}
     return ctx, {
@@ -2240,6 +2282,492 @@ def serve_replicas(dev, cfg, ctx, card):
     }
 
 
+# ---- step 14: KV migration and disaggregated serving ----------------------
+
+def migration_device_rows(dev, store, pages):
+    """Device rows of the migration's torch ops at (b)'s pages: the
+    source's page stack (one gather of the pages into one tensor), its
+    copy to the host, the destination's copy of the payload to the card,
+    and its splice (one device copy per page into fresh pages)."""
+    import torch
+    pool = store.pagepool
+    n, pb = len(pages), pool.page_bytes
+    stacked = pool.stack_pages(pages)
+    host = stacked.cpu().numpy()
+    # the gather alone is graph-replayed (its index's copy to the card
+    # cannot be captured); the launches and eager time are the whole call
+    arena = pool.arena()
+    idx = torch.tensor([pool.flat_ids([p.pid])[0] for p in pages],
+                       dtype=torch.int64, device=dev)
+    d_ms, _ = measure(lambda: arena.index_select(0, idx))
+    e_ms = time_ms(lambda: pool.stack_pages(pages))
+    n_launch, _ = launches_per_call(lambda: pool.stack_pages(pages))
+    fresh = [pool.alloc_page() for _ in range(n)]
+    try:
+        payload = pool.as_pages(host)
+
+        def splice():
+            for i, p in enumerate(fresh):
+                pool.write_raw(p, payload[i])
+
+        s_ms, s_eager = measure(splice)
+        s_launch, _ = launches_per_call(splice)
+        check(all(pool.read_raw(p).tobytes() == host[i].tobytes()
+                  for i, p in enumerate(fresh)),
+              "b migration rows: the splice is not byte-exact")
+    finally:
+        for p in fresh:
+            pool.unref(p)
+    d2h = time_ms(lambda: stacked.cpu())
+    h2d = time_ms(lambda: torch.from_numpy(host).to(dev))
+    rows = []
+    for name, dev_ms, eager, launches in (
+            ("page stack (gather)", d_ms, e_ms, n_launch),
+            ("splice (page copies)", s_ms, s_eager, s_launch)):
+        b = bound(2 * n * pb, 0, "float32", dev_ms)
+        rows.append({"program": f"{name} {n} x {pb} B", "device_ms": dev_ms,
+                     "eager_ms": eager, "cuda_launches_per_call": launches,
+                     **b})
+    rows.append({"program": f"stack to host {n * pb} B", "eager_ms": d2h,
+                 "device_ms": "not measured (a copy over PCIe)"})
+    rows.append({"program": f"payload to card {n * pb} B", "eager_ms": h2d,
+                 "device_ms": "not measured (a copy over PCIe)"})
+    return rows
+
+
+def serve_migration(dev, cfg, ctx, card, single_rpc):
+    """Step 14 (see the module docstring): the wide configuration's pages
+    migrated between replicas, fetched by a cold one, pushed on a ring
+    change, handed from a prefill replica to a decode process, and kept
+    on a standby for a failover."""
+    import brpc_tpu_torch.examples.disagg as dg
+    import brpc_tpu_torch.fault as fault
+    from brpc_tpu_torch import errors
+    import brpc_tpu_torch.migrate as migrate
+    import brpc_tpu_torch.migrate.plane as plane
+    import brpc_tpu_torch.models as models
+    import brpc_tpu_torch.native_path as native_path
+    import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.serving as serving
+    from brpc_tpu_torch.butil.endpoint import str2endpoint
+    from brpc_tpu_torch.ici import dcn
+    from brpc_tpu_torch.ici.block_pool import BlockPool
+    from brpc_tpu_torch.policy.load_balancer import (PrefixAffinityLB,
+                                                     ServerNode)
+    t_phase = time.perf_counter()
+    label = "b migration"
+    geo, params = ctx["geometry"], ctx["params"]
+    prompts, oracle = ctx["prompts"], ctx["oracle"]
+    pt = geo["page_tokens"]
+    full = (len(prompts[0]) - 1) // pt * pt          # 192 at (b)
+    counts = Counts()
+    rings0 = native_path.tokring_live()
+    # the decode process of the disagg part starts now: its CUDA context
+    # and weights come up while the parts before it run
+    child = dg.spawn("--role", "decode", "--config",
+                     json.dumps(cfg.__dict__), "--seed", str(ctx["seed"]),
+                     "--page-tokens", str(pt),
+                     "--max-blocks", str(geo["max_blocks"]),
+                     "--max-pages", str(geo["max_pages"]),
+                     "--num-slots", str(geo["num_slots"]), "--supervised",
+                     *(["--device", "cpu"] if dev.type == "cpu" else []))
+    reps = []
+
+    def replica(name, role="serve", *, fetch=False, live=False,
+                decode_addr=None):
+        """A replica on a block pool of its own: ``serve`` (the migration
+        splice and Serving.Generate over an engine), ``standby`` (the
+        standby services over a supervised engine) or ``prefill`` (the
+        disagg prefill service over the runner, no engine)."""
+        store = models.make_store_for(cfg, page_tokens=pt,
+                                      max_blocks=geo["max_blocks"],
+                                      pool=BlockPool(dev), name=name,
+                                      commit_live_pages=live)
+        runner = models.TransformerRunner(params, cfg, store=store,
+                                          device=dev, name=name)
+
+        def factory():
+            return serving.DecodeEngine(
+                runner=runner, store=store, num_slots=geo["num_slots"],
+                max_pages_per_slot=geo["max_pages"],
+                prefill_buckets=geo["buckets"], device=dev, name=name)
+
+        server = rpc.Server(enable_dcn=True, dcn_device=str(dev))
+        r = {"name": name, "store": store, "engine": None,
+             "server": server,
+             "free0": store.pagepool.pool.stats()["classes"]}
+        if role == "standby":
+            r["engine"] = serving.EngineSupervisor(
+                factory, store=store, ladder=CALM_LADDER, name=name)
+            r["standby"] = migrate.register_standby(server, store,
+                                                    r["engine"], name=name)
+        elif role == "prefill":
+            r["prefill"] = migrate.register_disagg_prefill(
+                server, store, decode_addr, runner=runner, name=name)
+        else:
+            r["engine"] = factory()
+            migrate.register_migration(server, store)
+            r["svc"] = serving.register_serving(server, engine=r["engine"])
+        server.start("127.0.0.1", 0)
+        r["addr"] = f"127.0.0.1:{server.port}"
+        if fetch:
+            r["svc"].prefix_fetcher = migrate.make_prefix_fetcher(
+                migrate.PageMigrator(store, name=f"{name}_fetcher"),
+                r["addr"])
+        reps.append(r)
+        return r
+
+    def baseline(r, what):
+        """No live sequence; the pool back at its baseline after clear();
+        no offer pinned (vacuous until a transfer fabric offers)."""
+        eng = r["engine"]
+        check(eng is None or eng.join_idle(60),
+              f"{label} {what}: {r['name']} not idle")
+        live_n = r["store"].stats()["live_seqs"]
+        check(live_n == 0, f"{label} {what}: {live_n} sequences live on "
+                           f"{r['name']}")
+        r["store"].clear()
+        check(r["store"].pagepool.blocks_leased() == 0 and
+              r["store"].pagepool.pool.stats()["classes"] == r["free0"],
+              f"{label} {what}: {r['name']}'s pool is off its baseline")
+        check(dcn.live_offer_count() == 0,
+              f"{label} {what}: {dcn.live_offer_count()} offers pinned")
+
+    def held(what, streams, want):
+        for i, (got, w) in enumerate(zip(streams, want)):
+            check(got == w, f"{label} {what}: request {i} streamed {got}, "
+                            f"dense oracle {w}")
+
+    def rpc_pass(r, ps, what, extra=None):
+        """``ps`` through ``r``'s Serving.Generate, all at once: streams,
+        prefix hits, client-timed TTFTs, wall seconds."""
+        ch = rpc.Channel(r["addr"], timeout_ms=120_000)
+        t0 = time.perf_counter()
+        recs = issue_generates(ch, ps, extra=extra)
+        streams, hits, ttft, _, _ = wait_generates(recs, f"{label} {what}")
+        return streams, hits, ttft, time.perf_counter() - t0
+
+    bytes0 = plane.migrate_bytes.get_value()
+    fb0 = plane.migrate_fallback.get_value()
+    zc0 = plane.migrate_zero_copy.get_value()
+    try:
+        r0, r1 = replica("b_mig0"), replica("b_mig1")
+        # -- 1. migration R0 -> R1
+        cold = counts.window(lambda: generate_all(r0["engine"], prompts,
+                                                  f"{label} R0 cold"))
+        held("R0 cold", cold, oracle)
+        mig = migrate.PageMigrator(r0["store"], name="b_mig0_out")
+        mig_ms, pages = [], 0
+        for p in prompts:
+            t0 = time.perf_counter()
+            pages += mig.migrate(p, r1["addr"])
+            mig_ms.append(1e3 * (time.perf_counter() - t0))
+        route = mig.stats()["routes"][r1["addr"]]
+        check(route["pages"] == pages == len(prompts) * (len(prompts[0])
+                                                         // pt),
+              f"{label}: {route} after migrating {pages} pages")
+        def page_bytes(store, p):
+            _, held_pages = store.acquire_pages(p)
+            try:
+                return [store.pagepool.read_raw(q).tobytes()
+                        for q in held_pages]
+            finally:
+                store.release(held_pages)
+
+        for p in prompts:
+            got_b = page_bytes(r1["store"], p)
+            check(got_b == page_bytes(r0["store"], p)
+                  and len(got_b) == len(p) // pt,
+                  f"{label}: an imported page differs from its source")
+        streams, hits, ttft_mig, wall_mig = counts.window(
+            lambda: rpc_pass(r1, prompts, "R1 from migrated pages"))
+        held("R1 from migrated pages", streams, oracle)
+        check(min(hits) >= full, f"{label}: R1 hits {hits} < {full}")
+        again = sum(mig.migrate(p, r1["addr"]) for p in prompts)
+        check(mig.stats()["routes"][r1["addr"]]["pages"] == pages
+              and again == pages,
+              f"{label}: a second migrate shipped new chunks")
+        baseline(r1, "R1")
+        in_use = r1["store"].pagepool.pages_in_use()
+        plan = fault.FaultPlan(14).on(fault.MIGRATE_SPLICE, fault.ERROR,
+                                      times=-1, after=1)
+        with fault.injected(plan):
+            try:
+                migrate.PageMigrator(r0["store"], name="b_mig0_fault"
+                                     ).migrate(prompts[0], r1["addr"])
+                check(False, f"{label}: the splice fault did not fail")
+            except errors.RpcError as e:
+                check("splice" in e.text, f"{label}: splice fault: {e}")
+        check(plan.injected[fault.MIGRATE_SPLICE] >= 1
+              and r1["store"].pagepool.pages_in_use() == in_use
+              and r1["store"].probe(prompts[0]) == 0,
+              f"{label}: the faulted splice did not roll back whole")
+        _, held_pages = r0["store"].acquire_pages(prompts[0])
+        try:
+            rows = migration_device_rows(dev, r0["store"], held_pages)
+        finally:
+            r0["store"].release(held_pages)
+        baseline(r1, "after the splice fault")
+        check_rings(f"{label} migrate", rings0)
+
+        # -- 2. a cold replica fetches from its holder
+        r2 = replica("b_mig2", fetch=True)
+        s_cold, h_cold, ttft_cold, wall_cold = counts.window(
+            lambda: rpc_pass(r2, prompts, "R2 cold"))
+        held("R2 cold", s_cold, oracle)
+        check(max(h_cold) == 0, f"{label}: R2 cold hit {h_cold}")
+        baseline(r2, "R2 cold")
+        holders = {i: {"prefix_holders": [r0["addr"]]}
+                   for i in range(len(prompts))}
+        # 8 fetching Generates at once, holder and fetcher in this one
+        # process: each waits on R0's PushTo, which waits on R2's OfferT
+        # (the fetch and the push run off the executor, so none times
+        # out into a recompute)
+        s_fetch, h_fetch, ttft_fetch, wall_fetch = counts.window(
+            lambda: rpc_pass(r2, prompts, "R2 fetch", extra=holders))
+        held("R2 fetch", s_fetch, oracle)
+        check(min(h_fetch) >= full and r2["svc"].prefix_fetches
+              == len(prompts), f"{label}: R2 fetched "
+                               f"{r2['svc'].prefix_fetches}, hits {h_fetch}")
+        baseline(r2, "R2 fetch")
+        baseline(r0, "R0")
+        check_rings(f"{label} fetch", rings0)
+
+        # -- 3. migrate on rebalance: R1 joins a ring of R0
+        eps = [str2endpoint(r["addr"]) for r in (r0, r1)]
+        families = family_prompts(cfg, eps, seed=21)
+        fam = [f["prompts"][:2] for f in families]
+        fprompts = [p for f in fam for p in f]
+        t0 = time.perf_counter()
+        foracle = [models.dense_generate(params, cfg, p, NEW_TOKENS,
+                                         device=dev) for p in fprompts]
+        t_refs = time.perf_counter() - t0
+        lb = PrefixAffinityLB()
+        lb.migrate_on_rebalance(migrate.rebalance_pusher(120_000))
+        lb.add_server(ServerNode(eps[0]))
+        for p in fprompts:
+            check(lb.select_for_prompt(p) == eps[0],
+                  f"{label}: a one-replica ring routed off R0")
+        streams = counts.window(lambda: generate_all(
+            r0["engine"], fprompts, f"{label} R0 families"))
+        held("R0 families", streams, foracle)
+        lb.add_server(ServerNode(eps[1]))
+        check(lb.join_migrations(120), f"{label}: rebalance hung")
+        moved = [k for k, f in enumerate(families)
+                 if f["owner"] == r1["addr"]]
+        check(lb.remaps == len(moved) and lb.remap_failures == 0
+              and lb.remap_migrations == len(moved),
+              f"{label}: remaps {lb.remaps} (failed {lb.remap_failures}) "
+              f"for families {moved}")
+        idx = [2 * k + j for k in moved for j in range(2)]
+        for i in idx:
+            check(lb.select_for_prompt(fprompts[i]) == eps[1],
+                  f"{label}: a remapped family still routes to R0")
+        s_rb, h_rb, _, _ = counts.window(lambda: rpc_pass(
+            r1, [fprompts[i] for i in idx], "R1 after the rebalance"))
+        held("R1 after the rebalance", s_rb, [foracle[i] for i in idx])
+        check(min(h_rb) >= FAMILY_HEAD - pt,
+              f"{label}: rebalanced hits {h_rb} < {FAMILY_HEAD - pt}")
+        for r in (r0, r1):
+            baseline(r, "rebalance")
+        check_rings(f"{label} rebalance", rings0)
+
+        # -- 4. disagg: prefill here, decode in the child process
+        dec_addr = f"127.0.0.1:{child[1]}"
+        pre = replica("b_prefill", "prefill", decode_addr=dec_addr)
+        co = migrate.DisaggCoordinator(pre["addr"], dec_addr, device=dev)
+        ta, tb = co.pair()
+        check(ta["platform"] == tb["platform"]
+              == ("gpu" if dev.type == "cuda" else "cpu")
+              and ta["pid"] != tb["pid"] and tb["xfer"] is None,
+              f"{label}: pairing {ta} {tb}")
+
+        def disagg_pass(ps):
+            outs, firsts = [None] * len(ps), [None] * len(ps)
+            t_issue = time.perf_counter()
+
+            def run(i):
+                def first(_t):
+                    if firsts[i] is None:
+                        firsts[i] = time.perf_counter() - t_issue
+                outs[i] = co.generate(ps[i], NEW_TOKENS, emit=first,
+                                      timeout_s=300)
+
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(ps))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            return outs, firsts, time.perf_counter() - t_issue
+
+        # first one generation whose page stream fails
+        # (fault.MIGRATE_SEND): the decode side recomputes, and the
+        # decode process's first device work is done before the timed pass
+        disagg_counts = Counts()
+        rng = np.random.default_rng(141)
+        fb_prompt = rng.integers(0, cfg.vocab, len(prompts[0])).tolist()
+        fb_oracle = models.dense_generate(params, cfg, fb_prompt,
+                                          NEW_TOKENS, device=dev)
+        plan = fault.FaultPlan(15).on(fault.MIGRATE_SEND, fault.ERROR,
+                                      times=1)
+        with fault.injected(plan):
+            fb = disagg_counts.window(lambda: co.generate(
+                fb_prompt, NEW_TOKENS, timeout_s=300))
+        check(fb["error"] is None and fb["prefill"]["recompute_fallback"]
+              and fb["prefix_hit"] == 0 and fb["tokens"] == fb_oracle,
+              f"{label} disagg fallback: {fb['prefill']}, hit "
+              f"{fb['prefix_hit']}, tokens equal "
+              f"{fb['tokens'] == fb_oracle}")
+        outs, firsts, wall_dg = disagg_counts.window(
+            lambda: disagg_pass(prompts))
+        # the family prompts, cold on both sides, under the profiler: the
+        # prefill process's busy share (the decode process is not seen)
+        (p_outs, _, _), prof = profile_window(
+            lambda: disagg_counts.window(lambda: disagg_pass(fprompts)))
+        held("disagg profiled", [o["tokens"] for o in p_outs], foracle)
+        counts.paged += disagg_counts.paged
+        counts.paged_cuda += disagg_counts.paged_cuda
+        counts.flash += disagg_counts.flash
+        for i, out in enumerate(outs):
+            check(out is not None and out["error"] is None,
+                  f"{label} disagg: generation {i} failed: {out}")
+            check(out["prefill"]["migrated_pages"] == len(prompts[i]) // pt
+                  and not out["prefill"]["recompute_fallback"]
+                  and out["prefix_hit"] >= full,
+                  f"{label} disagg: hand-off {out['prefill']}, decode hit "
+                  f"{out['prefix_hit']}")
+        held("disagg", [o["tokens"] for o in outs], oracle)
+        check(disagg_counts.paged > 0,
+              f"{label} disagg: the paged kernel was not launched in the "
+              f"prefill process")
+        child_stats = dg.stop(child[0])
+        child = None
+        check(child_stats["live_seqs"] == 0
+              and child_stats["pool_at_baseline"]
+              and child_stats["imported_pages"] >= len(prompts)
+              * (len(prompts[0]) // pt),
+              f"{label} disagg: the decode process ended with "
+              f"{child_stats}")
+        baseline(pre, "disagg prefill")
+        check_rings(f"{label} disagg", rings0)
+
+        # -- 5. failover to a standby
+        sb = replica("b_standby", "standby")
+        pr = replica("b_primary", live=True)
+        sync = migrate.StandbySync(pr["store"], sb["addr"],
+                                   submit_fn=pr["engine"].submit,
+                                   name="b_sync")
+        try:
+            got, errs, done = [], [], threading.Event()
+            t_crash = [0.0]
+
+            def on_done(e):
+                t_crash[0] = time.perf_counter()
+                errs.append(e)
+                done.set()
+
+            crash_k = NEW_TOKENS // 2
+            plan = fault.FaultPlan(16).on(
+                fault.STEP, fault.ERROR, times=1, after=crash_k,
+                match=lambda c: c.get("name") == "b_primary")
+            with fault.injected(plan):
+                sid, finished = counts.window(lambda: (sync.submit(
+                    prompts[1], NEW_TOKENS, got.append, on_done),
+                    done.wait(300)))
+            check(finished, f"{label} failover: the primary hung")
+            check(errs[0] is not None and len(got) == crash_k,
+                  f"{label} failover: primary ended {errs[0]} after "
+                  f"{len(got)} tokens")
+            check(sync.flush(60), f"{label} failover: ship queue stuck")
+            pr["engine"].close()                     # the primary dies
+            t_first = []
+            out = counts.window(lambda: migrate.assume_stream(
+                sb["addr"], sid, len(got), timeout_s=300,
+                emit=lambda t: t_first.append(time.perf_counter())))
+            check(out["error"] is None and got + out["tokens"]
+                  == oracle[1], f"{label} failover: stream differs")
+            check(out["resume_prefix_hit"] > 0 and out["replayed"] == 0,
+                  f"{label} failover: {out}")
+            try:
+                migrate.assume_stream(sb["addr"], sid, len(got))
+                check(False, f"{label} failover: a second assume passed")
+            except errors.RpcError as e:
+                check(e.code == errors.EREQUEST,
+                      f"{label} failover: second assume: {e}")
+            sync_stats = sync.stats()
+        finally:
+            sync.close()
+        failover_ms = 1e3 * (t_first[0] - t_crash[0])
+        for r in (sb, pr):
+            baseline(r, "failover")
+    finally:
+        if child is not None:
+            child[0].kill()
+            child[0].wait()
+        for r in reps:
+            r["server"].stop()
+            r["server"].join()
+        for r in reps:
+            if r["engine"] is not None:
+                r["engine"].close()
+            r["store"].clear()
+    for r in reps:
+        check(r["store"].pagepool.blocks_leased() == 0,
+              f"{label}: {r['name']}'s pool did not return to its baseline")
+    check(dcn.live_offer_count() == 0, f"{label}: offers left pinned")
+    check_rings(label, rings0)
+    check(counts.paged > 0 and counts.paged_cuda == 2 * counts.paged,
+          f"{label}: {counts.paged} paged calls ({counts.paged_cuda} CUDA)")
+    mb = (plane.migrate_bytes.get_value() - bytes0) / 2**20
+    mig_s = sum(mig_ms) / 1e3
+    toks = len(prompts) * NEW_TOKENS
+    return {
+        "config": label, "card": card, "page_tokens": pt,
+        "prompt_len": len(prompts[0]), "new_tokens": NEW_TOKENS,
+        "pages_per_prompt": len(prompts[0]) // pt,
+        "migrate_ms": {"p50": pct(mig_ms, 50), "p99": pct(mig_ms, 99),
+                       "all": mig_ms},
+        "migrate_pages_per_s": pages / mig_s,
+        "migrate_mb_per_s": pages * r0["store"].pagepool.page_bytes
+        / 2**20 / mig_s,
+        "splice_p99_us": plane.splice_recorder().latency_percentile(0.99),
+        "host_serialized_mb": mb,
+        "fallback_migrations": plane.migrate_fallback.get_value() - fb0,
+        "zero_copy": plane.migrate_zero_copy.get_value() - zc0,
+        "r1_min_prefix_hit": min(hits),
+        "r1_ttft_ms_p50": 1e3 * pct(ttft_mig, 50),
+        "fetch_ttft_ms_p50": 1e3 * pct(ttft_fetch, 50),
+        "cold_ttft_ms_p50": 1e3 * pct(ttft_cold, 50),
+        "fetch_pass_s": wall_fetch, "cold_pass_s": wall_cold,
+        "fetch_streams": len(prompts),
+        "fetch_min_prefix_hit": min(h_fetch),
+        "rebalance": {"families": len(families), "remapped": len(moved),
+                      "min_prefix_hit": min(h_rb),
+                      "remap_migrations": lb.remap_migrations},
+        "disagg": {
+            "ttft_ms_p50": 1e3 * pct([f for f in firsts if f], 50),
+            "prefill_call_ms_p50": pct([o["prefill_ms"] for o in outs], 50),
+            "tokens_per_s": toks / wall_dg,
+            "single_replica_rpc_ttft_ms": single_rpc["ttft_ms"],
+            "single_replica_rpc_tokens_per_s": {
+                "cold": single_rpc["cold_tokens_per_s"],
+                "warm": single_rpc["warm_tokens_per_s"]},
+            "min_decode_prefix_hit": min(o["prefix_hit"] for o in outs),
+            "prefill_paged_calls": disagg_counts.paged,
+            "prefill_stats": pre["prefill"].stats(),
+            "decode_process": child_stats,
+            "profile": prof, "fallback_prefix_hit": fb["prefix_hit"]},
+        "failover": {"crash_to_first_resumed_token_ms": failover_ms,
+                     "tokens_before_crash": crash_k,
+                     "resume_prefix_hit": out["resume_prefix_hit"],
+                     "sync": sync_stats},
+        "device_rows": rows, "refs_s": t_refs,
+        "wall_s": time.perf_counter() - t_phase,
+        "launches": counts.as_dict(), "paged_cuda_launches": counts.paged_cuda,
+    }
+
+
 # ---- PS and training phases: the flagship train step, the shard fleet,
 # the trainer through the wire -------------------------------------------
 
@@ -3054,6 +3582,56 @@ def main() -> int:
           f", wire/pcp {wp['wire_over_pcp']:.3f}; one JSON Pull of w_out "
           f"[32, {WAVE_VOCAB}] {r['dense_pull_w_out_ms']:.1f} ms",
           flush=True)
+
+    # -- step 14: KV migration and disaggregated serving, (b) again
+    served_migration = serve_migration(dev, cfg_b, ctx_b, card, served_rpc)
+    phase_done("serve migration")
+    r = served_migration
+    dg, fo = r["disagg"], r["failover"]
+    print(f"serve b migration [{card}]: {r['pages_per_prompt']} pages "
+          f"({r['pages_per_prompt'] * cfg_b.kv_bytes_per_token * r['page_tokens'] / 2**20:.1f}"
+          f" MiB) a prompt, migrate ms p50/p99 "
+          f"{r['migrate_ms']['p50']:.2f}/{r['migrate_ms']['p99']:.2f}, "
+          f"{r['migrate_pages_per_s']:.1f} pages/s, "
+          f"{r['migrate_mb_per_s']:.1f} MiB/s; splice p99 "
+          f"{r['splice_p99_us']:.0f} us; host-serialized "
+          f"{r['host_serialized_mb']:.1f} MiB in "
+          f"{r['fallback_migrations']} migrations, zero_copy "
+          f"{r['zero_copy']}; R1 from migrated pages: least prefix hit "
+          f"{r['r1_min_prefix_hit']}, TTFT p50 {r['r1_ttft_ms_p50']:.1f} ms; "
+          f"fetch TTFT p50 {r['fetch_ttft_ms_p50']:.1f} ms against a cold "
+          f"prefill {r['cold_ttft_ms_p50']:.1f} ms on the same replica "
+          f"(least hit {r['fetch_min_prefix_hit']}; {r['fetch_streams']} "
+          f"streams at once, pass {r['fetch_pass_s']:.3f} s against "
+          f"{r['cold_pass_s']:.3f} s cold); rebalance "
+          f"{json.dumps(r['rebalance'])}", flush=True)
+    print(f"serve b disagg [{card}]: 8 concurrent {NEW_TOKENS}-token "
+          f"generations across two processes: TTFT p50 "
+          f"{dg['ttft_ms_p50']:.1f} ms (of it the Prefill call, p50 "
+          f"{dg['prefill_call_ms_p50']:.1f} ms), "
+          f"{dg['tokens_per_s']:.1f} tok/s "
+          f"(one replica over RPC, step 6: TTFT ms "
+          f"{json.dumps(dg['single_replica_rpc_ttft_ms'])}, tok/s "
+          f"{json.dumps(dg['single_replica_rpc_tokens_per_s'])}); least "
+          f"decode prefix hit {dg['min_decode_prefix_hit']}; paged calls in "
+          f"the prefill process {dg['prefill_paged_calls']}; prefill "
+          f"process busy (profiled pass) "
+          f"{dg['profile']['device_busy_share']}; decode process "
+          f"{json.dumps(dg['decode_process'])}", flush=True)
+    print(f"serve b failover [{card}]: crash after "
+          f"{fo['tokens_before_crash']} tokens -> first resumed token "
+          f"{fo['crash_to_first_resumed_token_ms']:.1f} ms, resume prefix "
+          f"hit {fo['resume_prefix_hit']}, sync {json.dumps(fo['sync'])}; "
+          f"phase wall {r['wall_s']:.1f} s (references {r['refs_s']:.1f} "
+          f"s); launches {r['launches']} ({r['paged_cuda_launches']} paged "
+          f"CUDA)", flush=True)
+    for row in r["device_rows"]:
+        print(f"migration program [{card}] {row['program']}: device ms "
+              f"{row['device_ms']} eager {row['eager_ms']:.4f}"
+              + (f" CUDA launches/call {row['cuda_launches_per_call']} "
+                 f"bound {row['bound_ms']:.5f} ({row['bound_by']}) share "
+                 f"{100 * row['share_of_bound']:.1f}%"
+                 if "bound_ms" in row else ""), flush=True)
     print(f"phase seconds [{card}]: {json.dumps(phase_s)}", flush=True)
 
     def entry(name, source, replaces, rows, main_row):
@@ -3061,8 +3639,8 @@ def main() -> int:
         err = max(r["max_abs_err"] for r in rows)
         launches = sum(r["launches"][name] for r in
                        served + speculative + [served_rpc, served_control,
-                                               served_host,
-                                               served_replicas])
+                                               served_host, served_replicas,
+                                               served_migration])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "max_abs_diff": err,
@@ -3090,7 +3668,8 @@ def main() -> int:
               "host_path_serving": served_host,
               "replicas_serving": served_replicas,
               "train_flagship": flagship, "ps_fleet": fleet,
-              "trainer_wire": trainer, "phase_s": phase_s,
+              "trainer_wire": trainer,
+              "migration_serving": served_migration, "phase_s": phase_s,
               "native_build_s": cbuild.build_seconds,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,

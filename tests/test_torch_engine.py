@@ -214,6 +214,7 @@ def test_port_runs_without_jax_or_brpc_tpu():
     a ``DynamicBatcher`` over the runner, called through a
     ``prefix_affinity`` cluster channel and a ``ParallelChannel``, and
     one Adam ``PS.UpdateT`` and ``PS.LookupT`` through a ``PSClient``,
+    and one KV page migration into a ``Server(enable_dcn=True)``,
     leaves jax and the JAX package out of sys.modules; the only native
     core mapped is the port's own build."""
     code = textwrap.dedent("""
@@ -304,6 +305,20 @@ def test_port_runs_without_jax_or_brpc_tpu():
         assert shard.stats()["opt_slots"] == ["m", "t", "v"]
         ps.stop(); ps.join()
         assert not health_check.broken_endpoints()
+        import brpc_tpu_torch.migrate as mig
+        from brpc_tpu_torch.models.runner import run_prefill
+        p9 = list(range(1, 10))
+        seq = store.admit(p9)
+        run_prefill(runner, seq, p9)
+        store.retire(seq, cache=True)
+        dst = make_store_for(cfg, page_tokens=4, device="cpu", name="dst")
+        mig_srv = rpc.Server(enable_dcn=True, dcn_device="cpu")
+        mig.register_migration(mig_srv, dst)
+        mig_srv.start("127.0.0.1", 0)
+        assert mig.PageMigrator(store).migrate(
+            p9, f"127.0.0.1:{mig_srv.port}") == 2
+        assert dst.probe(p9) == 8
+        mig_srv.stop(); mig_srv.join()
         server.stop(); server.join(); sup.close(); batcher.close()
         cores = sorted({ln.split()[-1].rsplit("/", 1)[-1]
                         for ln in open("/proc/self/maps")

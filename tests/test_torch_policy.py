@@ -174,8 +174,27 @@ class TestBalancerParity:
                 [str(e) for e in ref.placement(code, 3)]
 
     def test_migration_on_rebalance_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            LB.PrefixAffinityLB().migrate_on_rebalance(lambda *a: None)
+        """Ported since the KV migration slice (the name is the earlier
+        check's): a ring change fires the hook for the same remapped
+        prefixes, old and new owners in both packages."""
+        ref, port = _pair("prefix_affinity", RING_SERVERS[:2])
+        calls = {"ref": [], "port": []}
+        for key, lb in (("ref", ref), ("port", port)):
+            lb.migrate_on_rebalance(
+                lambda t, o, n, key=key: calls[key].append(
+                    (tuple(t), str(o), str(n))))
+        rng = np.random.default_rng(4)
+        for _ in range(32):
+            p = rng.integers(0, 32768, 20).tolist()
+            assert str(port.select_for_prompt(p)) == \
+                str(ref.select_for_prompt(p))
+        ref.add_server(_nodes(RLB, REP.str2endpoint, RING_SERVERS[2:3])[0])
+        port.add_server(_nodes(LB, str2endpoint, RING_SERVERS[2:3])[0])
+        assert ref.join_migrations(10) and port.join_migrations(10)
+        assert calls["port"] and sorted(calls["port"]) == \
+            sorted(calls["ref"])
+        assert port.remaps == ref.remaps == len(calls["port"])
+        assert port.remap_migrations == port.remaps
 
 
 def _breaker_trace(mod, hc, seq, ep):
