@@ -31,3 +31,5 @@ Importing this package builds nothing: the kernels compile with
 with ``g++`` at the first server or channel (``_core/build.py``).
 """
 from .device import resolve_device  # noqa: F401
+
+__version__ = "0.1.0"   # the JAX package's version: one wire, one console

@@ -1,7 +1,9 @@
 """ctypes bindings to the port's native host core.
 
 A copy of the part of ``brpc_tpu/_core/lib.py`` the port uses: the
-socket, framing, timer and IOBuf entry points of the TRPC transport,
+socket, framing, timer and IOBuf entry points of the TRPC transport
+and of the HTTP client (``brpc_connect``, raw-mode sockets), the
+counters the builtin console reads,
 the latency recorder of ``bvar``, the serving hot path's native emit
 rings (:class:`TokenRing`), batch pad and page-table fill in
 ``libbrpc_core_torch.so``, and the ``_fastrpc`` extension linked
@@ -23,6 +25,7 @@ from . import build as _build
 
 MSG_TRPC = 0
 MSG_HTTP = 1
+MSG_RAW = 7      # a raw-mode socket: every read is delivered as it comes
 
 # Callback signatures (src/cc/capi.cc).  meta is c_void_p, not
 # c_char_p: it is binary and may hold NULs; read it with string_at.
@@ -79,6 +82,34 @@ _SIGS = {
                                         MESSAGE_CB, FAILED_CB, RESPONSE_CB,
                                         ctypes.c_void_p,
                                         ctypes.POINTER(ctypes.c_uint64)]),
+    # a plain client socket (the HTTP client's) and its wire protocol
+    "brpc_connect": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int,
+                                    MESSAGE_CB, FAILED_CB, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_uint64)]),
+    "brpc_socket_set_protocol": (ctypes.c_int, [ctypes.c_uint64,
+                                                ctypes.c_int]),
+    # what the builtin console reads (/connections, /sockets, /bthreads,
+    # /memory, /vlog)
+    "brpc_socket_stats": (ctypes.c_int, [ctypes.c_uint64,
+                                         ctypes.POINTER(ctypes.c_int64),
+                                         ctypes.POINTER(ctypes.c_int64),
+                                         ctypes.POINTER(ctypes.c_int64),
+                                         ctypes.c_char_p, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)]),
+    "brpc_socket_active_count": (ctypes.c_int64, []),
+    "brpc_iobuf_live_blocks": (ctypes.c_int64, []),
+    "brpc_iobuf_alloc_folded": (ctypes.c_int, [ctypes.c_char_p,
+                                               ctypes.c_size_t]),
+    "brpc_iobuf_alloc_events": (ctypes.c_int64, []),
+    "brpc_executor_tasks_executed": (ctypes.c_int64, []),
+    "brpc_executor_steals": (ctypes.c_int64, []),
+    "brpc_executor_num_workers": (ctypes.c_int, []),
+    "brpc_fiber_counters": (None, [ctypes.POINTER(ctypes.c_int64),
+                                   ctypes.POINTER(ctypes.c_int64),
+                                   ctypes.POINTER(ctypes.c_int64),
+                                   ctypes.POINTER(ctypes.c_int64)]),
+    "brpc_timer_fired": (ctypes.c_int64, []),
+    "brpc_set_min_log_level": (None, [ctypes.c_int]),
     # bvar's native latency recorder (bvar/recorder.py)
     "brpc_latency_new": (ctypes.c_void_p, []),
     "brpc_latency_free": (None, [ctypes.c_void_p]),

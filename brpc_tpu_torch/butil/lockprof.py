@@ -421,6 +421,14 @@ def held_locks_snapshot() -> dict:
     return out
 
 
+def lock_order_edges() -> dict:
+    """The observed order graph: {'a->b': {'site': ..}} (the
+    ``/hotspots/locks?fmt=json`` witness section)."""
+    with _wit_mu:
+        return {f"{a}->{b}": dict(info)
+                for (a, b), info in sorted(_wit_edges.items())}
+
+
 def order_violations() -> list:
     """ABBA cycles observed so far (potential deadlocks)."""
     with _wit_mu:

@@ -13,6 +13,7 @@ import os
 ENOSERVICE = 1001        # service not found
 ENOMETHOD = 1002         # method not found
 EREQUEST = 1003          # bad request
+ERPCAUTH = 1004          # authentication failed
 ETOOMANYFAILS = 1005     # too many sub-channel failures (ParallelChannel)
 ERPCTIMEDOUT = 1008      # RPC deadline exceeded
 EFAILEDSOCKET = 1009     # the connection broke during the RPC
@@ -33,6 +34,7 @@ _DESCRIPTIONS = {
     ENOSERVICE: "The service was not found",
     ENOMETHOD: "The method was not found",
     EREQUEST: "Bad request",
+    ERPCAUTH: "Authentication failed",
     ETOOMANYFAILS: "Too many sub-channel failures",
     ERPCTIMEDOUT: "RPC call timed out",
     EFAILEDSOCKET: "Broken socket during RPC",

@@ -1,7 +1,9 @@
-"""Real model serving over the port's own RPC front.
+"""Real model serving over the port's own RPC front and its HTTP face.
 
     python3 -m brpc_tpu_torch.examples.llm_server             # on cuda
     python3 -m brpc_tpu_torch.examples.llm_server --device cpu
+    python3 -m brpc_tpu_torch.examples.llm_server --device cpu \
+        --serve-seconds 600    # then browse the console (below)
 
 A ``TransformerRunner`` (random weights from a seed) whose K/V live in
 the paged KV cache, behind ``Serving.Generate`` on the port's
@@ -11,17 +13,26 @@ each stream is printed beside the port's cache-less ``dense_generate``:
   1. a cold prompt: the paged decode equals the dense model;
   2. the same prompt again: identical tokens, the prompt's prefix served
      from the radix cache (the server's advisory ``prefix_hit``);
-  3. a prompt sharing only the "system" prefix: that part is reused.
+  3. a prompt sharing only the "system" prefix: that part is reused;
+  4. the cold prompt over HTTP: ``GET /serving/generate`` read as a
+     chunked stream of JSON lines through the port's ``HttpChannel``,
+     equal to the same dense tokens.
+
+The same port serves the builtin console: with ``--serve-seconds N``
+the server stays up N seconds after the checks, for
+``curl 127.0.0.1:<port>/status`` or
+``curl '127.0.0.1:<port>/serving/generate?prompt=7,99,23&max_new_tokens=8'``.
 
 The counterpart of the JAX package's ``examples/llm_server.py``.  It
 runs on the card unless ``--device cpu`` is passed; without a card and
-without that flag it raises.
+without that flag it raises.  Any mismatch exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import threading
+import time
 
 import torch
 
@@ -56,6 +67,9 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda; 'cpu' for the host)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--serve-seconds", type=float, default=0.0,
+                    help="keep serving (console, /serving/generate) this "
+                         "long after the checks")
     args = ap.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -86,6 +100,21 @@ def main(argv=None) -> int:
             raise RuntimeError(f"generation failed: {col.terminal}")
         return col.tokens, resp["prefix_hit"]
 
+    def http_generate(prompt):
+        lines = []
+        web = rpc.HttpChannel(f"127.0.0.1:{server.port}")
+        reader = web.request_stream(
+            "GET", f"/serving/generate?prompt="
+                   f"{','.join(map(str, prompt))}&max_new_tokens={n}",
+            on_data=lines.append)
+        if not reader.wait(300) or reader.error is not None:
+            raise RuntimeError(f"HTTP generation failed: {reader.error}")
+        msgs = [json.loads(ln) for ln in b"".join(lines).splitlines()
+                if ln]
+        if msgs[-1:] != [{"done": True}]:
+            raise RuntimeError(f"HTTP generation ended with {msgs[-1:]}")
+        return [m["token"] for m in msgs if "token" in m]
+
     try:
         system = [7, 99, 23, 54]                  # "system prompt" prefix
         prompt = system + [5, 17, 42, 9]
@@ -110,9 +139,19 @@ def main(argv=None) -> int:
         print(f"    dense_generate: {ref3}")
         if toks3 != ref3:
             raise RuntimeError("the shared-prefix generation diverged")
+        toks4 = http_generate(prompt)
+        print(f"[4] HTTP /serving/generate          tokens={toks4}"
+              f"   <- chunked JSON lines, no TRPC")
+        if toks4 != ref:
+            raise RuntimeError("the HTTP stream diverged from the dense "
+                               "model")
         st = store.stats()
         print(f"\nkvcache: hit_tokens={store.hit_tokens}  "
               f"live_seqs={st['live_seqs']}")
+        if args.serve_seconds > 0:
+            print(f"console: http://127.0.0.1:{server.port}/ for "
+                  f"{args.serve_seconds:g} s", flush=True)
+            time.sleep(args.serve_seconds)
     finally:
         server.stop()
         server.join()

@@ -8,10 +8,16 @@ Schemes: list://h1:p1,h2:p2[(w)][ tag]  static list
          file://path               one "host:port [weight] [tag]" per line,
                                    re-read periodically
          dns://host:port           resolve A/AAAA records periodically
+         remotefile://host:port/path
+                                   the file:// format fetched over HTTP
+         discovery://, consul://, nacos://host:port/path
+                                   a JSON server list fetched over HTTP
 
-Left out: remotefile://, discovery://, consul:// and nacos://, which poll
-an HTTP registry (ROADMAP Queue 1 item 6, the HTTP client), and ici://,
-the local device mesh (item 9); those schemes raise NotImplementedError.
+A refresh that fails (the registry down, a non-200 answer, malformed
+JSON) raises, and the naming thread keeps the last-known-good list.
+
+Left out: ici://, the local device mesh (ROADMAP Queue 1 item 9); it
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -114,19 +120,79 @@ class DnsNamingService(NamingService):
         return nodes
 
 
+class RemoteFileNamingService(NamingService):
+    """remotefile://host:port/path -- fetch a server list over HTTP in
+    the file:// format, periodically."""
+
+    interval_s = 5.0
+
+    def _fetch(self) -> str:
+        """Raises on a network error or a non-200 answer, so the naming
+        thread keeps the last-known-good list: returning [] here would
+        wipe the balancer on a transient registry outage."""
+        from ..rpc.http import HttpChannel
+        addr, slash, path = self.param.partition("/")
+        ch = HttpChannel(addr, timeout_ms=4000)
+        try:
+            r = ch.request("GET", "/" + path if slash else "/")
+            if r.status != 200:
+                raise OSError(f"registry returned HTTP {r.status}")
+            return r.body.decode("utf-8", "replace")
+        finally:
+            ch.close()
+
+    def get_servers(self):
+        return _parse_server_lines(self._fetch())
+
+
+class HttpJsonNamingService(RemoteFileNamingService):
+    """discovery://, consul://, nacos://host:port/path -- fetch a JSON
+    server list over HTTP, periodically (the three registries differ
+    only in the JSON's shape).  Accepted shapes:
+
+      ["host:port", ...]
+      [{"addr": "host:port", "weight": 2, "tag": "0/4"}, ...]
+      {"servers": [... either of the above ...]}   (or "hosts")
+
+    A malformed entry is skipped; a malformed document raises."""
+
+    interval_s = 5.0
+
+    def get_servers(self):
+        import json
+        doc = json.loads(self._fetch() or "null")
+        if isinstance(doc, dict):
+            doc = doc.get("servers") or doc.get("hosts") or []
+        if not isinstance(doc, list):
+            raise ValueError("registry JSON is not a server list")
+        nodes = []
+        for item in doc:
+            try:
+                if isinstance(item, str):
+                    nodes.append(ServerNode(str2endpoint(item)))
+                elif isinstance(item, dict):
+                    nodes.append(ServerNode(
+                        str2endpoint(item["addr"]),
+                        int(item.get("weight") or 1),
+                        str(item.get("tag") or "")))
+            except (ValueError, KeyError, TypeError, AttributeError):
+                continue
+        return nodes
+
+
 _SCHEMES = {
     "list": ListNamingService,
     "file": FileNamingService,
     "dns": DnsNamingService,
+    "remotefile": RemoteFileNamingService,
+    "discovery": HttpJsonNamingService,
+    "consul": HttpJsonNamingService,
+    "nacos": HttpJsonNamingService,
 }
 
 # the JAX package's schemes the port does not have yet, and the ROADMAP
 # Queue 1 item that brings each
 _LATER = {
-    "remotefile": "item 6 (the HTTP client)",
-    "discovery": "item 6 (the HTTP client)",
-    "consul": "item 6 (the HTTP client)",
-    "nacos": "item 6 (the HTTP client)",
     "ici": "item 9 (the mesh slice)",
 }
 

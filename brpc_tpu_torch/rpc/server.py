@@ -1,22 +1,34 @@
-"""Server -- service registry and TRPC dispatch.
+"""Server -- service registry, TRPC dispatch and the HTTP console.
 
 A trimmed copy of ``brpc_tpu/rpc/server.py``.  The request path: the
 native core parses a frame and hands it to an executor thread (plain
 requests pre-parsed through ``_fastrpc``) -> find the method -> decode
-and decompress -> the handler -> encode, compress, write the response
--> :class:`MethodStatus` accounting.  Kept: ``add_service``,
-``start``/``stop``/``join``/``port``, deferred responses
-(``cntl.defer()``), accepted streams, and one rpcz server span per
-call: it joins the wire's trace (``trace_id``/``span_id`` of the
-request meta) and inherits its sampling decision
+and decompress -> the handler -> encode, compress, write the response ->
+:class:`MethodStatus` accounting (per-method latency recorder, error
+and concurrency bvars: the ``/status`` page's data).  Kept:
+``add_service``, ``start``/``stop``/``join``/``port``, deferred
+responses (``cntl.defer()``), accepted streams, and one rpcz server
+span per call: it joins the wire's trace (``trace_id``/``span_id`` of
+the request meta) and inherits its sampling decision
 (``FLAG_TRACE_SAMPLED``), and is the current span while the handler
-runs, so the serving layers' spans nest under it.  ``start`` exposes
-the process default variables (cpu, rss, fds), and with
+runs, so the serving layers' spans nest under it.
+
+HTTP requests on the same port go to the builtin console router
+(``builtin/router.py``, installed at ``start`` unless
+``has_builtin_services`` is off, when they get a 404): the console
+pages, user handlers (:meth:`Server.add_http_handler`, e.g. the chunked
+``/serving/generate``) and the RESTful bridge onto RPC methods
+(:meth:`Server.invoke_restful`, through the same MethodStatus
+accounting, inflight count and rpcz span as TRPC, and answered
+asynchronously when the handler defers).  ``start`` exposes the process default
+variables (cpu, rss, fds), starts the always-on stage-tagged sampler
+(``builtin/sampler.py``; the last server to join stops it), and with
 ``enable_dcn`` registers the ``_dcn`` handshake service.  Left out
-(ROADMAP): the other protocols on the port (HTTP gets a 404), builtin
-services and the console, auth, interceptors, limiters, tag pools,
-``rpc_dump``, per-method bvar variables, the hotspot sampler and the
-rail.
+(ROADMAP): the other protocols on the port (gRPC, redis, memcache,
+thrift, mongo), the ``grpc.health.v1.Health`` builtin and the RESTful
+bridge's json2pb branch (both with the gRPC slice), auth,
+interceptors, tag pools, ``rpc_dump``, the server and per-method
+concurrency limiters and the rail.
 """
 from __future__ import annotations
 
@@ -27,6 +39,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .. import errors, rpcz
+from ..bvar import Adder, LatencyRecorder, PassiveStatus
 from ..bvar.default_variables import expose_default_variables
 from . import meta as M
 from .controller import Controller
@@ -40,6 +53,8 @@ _log = logging.getLogger(__name__)
 
 @dataclass
 class ServerOptions:
+    # the console router on the RPC port (off: HTTP gets a 404)
+    has_builtin_services: bool = True
     # seconds join() waits for in-flight requests before closing
     # connections
     graceful_quit_timeout_s: float = 5.0
@@ -50,28 +65,35 @@ class ServerOptions:
 
 
 class MethodStatus:
-    """Per-method concurrency, latency and error counts."""
+    """Per-method concurrency, latency and error counts, exposed as
+    ``rpc_server_<Service>_<Method>_{latency,count,...}``,
+    ``_error`` and ``_concurrency``: the ``/status`` page's data."""
 
     def __init__(self, full_name: str):
+        safe = full_name.replace("/", "_").replace(".", "_")
         self.full_name = full_name
+        self.latency_rec = LatencyRecorder(f"rpc_server_{safe}")
+        self.nerror = Adder(f"rpc_server_{safe}_error")
         self._mu = threading.Lock()
-        self.concurrency = 0
-        self.count = 0            # answered without error
-        self.nerror = 0
-        self.latency_us_total = 0
+        self._concurrency = 0
+        PassiveStatus(lambda: self.concurrency).expose(
+            f"rpc_server_{safe}_concurrency")
 
     def on_requested(self) -> None:
         with self._mu:
-            self.concurrency += 1
+            self._concurrency += 1
 
     def on_responded(self, error_code: int, latency_us: int) -> None:
         with self._mu:
-            self.concurrency = max(0, self.concurrency - 1)
-            if error_code == 0:
-                self.count += 1
-                self.latency_us_total += latency_us
-            else:
-                self.nerror += 1
+            self._concurrency = max(0, self._concurrency - 1)
+        if error_code == 0:
+            self.latency_rec.add(latency_us)
+        else:
+            self.nerror.add(1)
+
+    @property
+    def concurrency(self) -> int:
+        return self._concurrency
 
 
 class Server:
@@ -90,6 +112,18 @@ class Server:
         self._inflight_zero.set()
         self._connections: set[int] = set()
         self._conn_mu = threading.Lock()
+        self._start_time = time.time()
+        # the console router, installed at start
+        self._http_router = None
+        # user HTTP handlers served beside the console pages
+        self._http_handlers: dict[str, object] = {}
+
+    def add_http_handler(self, path: str, fn) -> "Server":
+        """Serve ``fn(req)`` at ``path`` on the console port; it may
+        return str or bytes, ``(body, content_type)``, a whole HTTP/1.1
+        response, or a ``ProgressiveResponse`` for chunked push."""
+        self._http_handlers[path] = fn
+        return self
 
     # ---- registry ----
 
@@ -120,7 +154,14 @@ class Server:
         if self._started:
             raise RuntimeError("already started")
         self._stopping = False
+        if self.options.has_builtin_services:
+            from ..builtin.router import HttpRouter
+            self._http_router = HttpRouter(self)
         expose_default_variables()
+        # the always-on stage-tagged sampler behind /hotspots
+        # (flag-gated: hotspot_sampler_enabled, live on /flags)
+        from ..builtin.sampler import HotspotSampler
+        HotspotSampler.ensure_started()
         if self.options.enable_dcn:
             # added before the native registration loop below, so the
             # _dcn methods ride the same path as every other service
@@ -137,6 +178,8 @@ class Server:
         for key in self._methods:
             _native_method_register(key)
         self._started = True
+        self._start_time = time.time()
+        _register_server(self)
         return self
 
     @property
@@ -176,11 +219,27 @@ class Server:
         for key in self._methods:
             _native_method_unregister(key)
         self._started = False
+        if not _unregister_server(self):
+            # no server of this process is left: its sampler goes too
+            # (the JAX package's runs for the process's life; here a
+            # test module that served leaves no sampling thread behind)
+            from ..builtin.sampler import HotspotSampler
+            HotspotSampler.instance().stop()
+
+    # ---- stats for the console ----
+
+    @property
+    def uptime_s(self) -> float:
+        return time.time() - self._start_time
 
     @property
     def connection_count(self) -> int:
         with self._conn_mu:
             return len(self._connections)
+
+    def connections(self) -> list[int]:
+        with self._conn_mu:
+            return list(self._connections)
 
     # ---- dispatch ----
 
@@ -202,8 +261,11 @@ class Server:
         self._track_conn(sid)
         t = Transport.instance()
         if kind == MSG_HTTP:
-            t.write_raw(sid, b"HTTP/1.1 404 Not Found\r\n"
-                             b"Content-Length: 0\r\n\r\n")
+            if self._http_router is not None:
+                self._http_router.handle(sid, body.to_bytes())
+            else:
+                t.write_raw(sid, b"HTTP/1.1 404 Not Found\r\n"
+                                 b"Content-Length: 0\r\n\r\n")
             return
         if kind != MSG_TRPC:
             # a protocol this server does not speak: close so the client
@@ -307,8 +369,10 @@ class Server:
             return
         # ---- handler ----
         # the done closure is built only when the handler defers
-        cntl._done_factory = lambda: self._make_server_done(
-            sid, meta, span, cntl, spec, status, start)
+        cntl._done_factory = lambda: _make_done(
+            f"{meta.service}.{meta.method} cid={meta.correlation_id}",
+            lambda response: self._complete(sid, meta, span, cntl, spec,
+                                            status, start, response))
         traced = span is not rpcz.NULL_SPAN
         if traced:      # with rpcz off, no context-variable writes
             rpcz.set_current_span(span)
@@ -329,22 +393,6 @@ class Server:
         if cntl._deferred:
             return
         self._complete(sid, meta, span, cntl, spec, status, start, response)
-
-    def _make_server_done(self, sid, meta, span, cntl, spec, status, start):
-        fired = [False]
-        fired_mu = threading.Lock()
-
-        def done(response=None):
-            with fired_mu:
-                if fired[0]:
-                    raise RuntimeError(
-                        f"done() called twice for {meta.service}."
-                        f"{meta.method} cid={meta.correlation_id}")
-                fired[0] = True
-            self._complete(sid, meta, span, cntl, spec, status, start,
-                           response)
-
-        return done
 
     def _complete(self, sid: int, meta: M.RpcMeta, span, cntl, spec,
                   status, start: float, response,
@@ -418,12 +466,125 @@ class Server:
             self._respond_error(sid, meta, errors.EINTERNAL,
                                 f"{type(e).__name__}: {e}")
         finally:
-            status.on_responded(error_code,
-                                int((time.monotonic() - start) * 1e6))
-            span.error_code = error_code
-            span.end_us = rpcz.now_us()
-            rpcz.submit(span)
-            self._inflight_dec()
+            self._account(span, status, start, error_code)
+
+    def _account(self, span, status, start: float, error_code: int) -> None:
+        """A finished request's MethodStatus, rpcz span and inflight
+        count, on both wires."""
+        status.on_responded(error_code,
+                            int((time.monotonic() - start) * 1e6))
+        span.error_code = error_code
+        span.end_us = rpcz.now_us()
+        rpcz.submit(span)
+        self._inflight_dec()
+
+    # ---- the RESTful bridge's entry (builtin/router.py) ----
+
+    def invoke_restful(self, service: str, method_name: str, payload,
+                       reply) -> None:
+        """Call a method for the HTTP JSON bridge through the same gates
+        as TRPC traffic (MethodStatus, the inflight count, an rpcz span)
+        and answer through ``reply(error_code, error_text, result)``,
+        exactly once.  A handler that defers (``cntl.defer()``, as
+        Score's batcher does) is answered by its done closure, on the
+        thread that completes it: no executor worker waits for it."""
+        if self._stopping:
+            reply(errors.ELOGOFF, errors.describe(errors.ELOGOFF), None)
+            return
+        key = (service, method_name)
+        spec = self._methods.get(key)
+        if spec is None:
+            code = errors.ENOSERVICE if service not in self._services \
+                else errors.ENOMETHOD
+            reply(code, errors.describe(code), None)
+            return
+        status = self._method_status[key]
+        status.on_requested()
+        self._inflight_inc()
+        start = time.monotonic()
+        span = rpcz.new_span("server", service, method_name)
+        span.annotate("protocol=http")
+        cntl = Controller()
+        cntl.is_server_side = True
+        cntl.request_meta = M.RpcMeta(msg_type=M.MSG_REQUEST,
+                                      service=service, method=method_name,
+                                      content_type="json")
+        cntl.trace_id = span.trace_id
+        cntl.span_id = span.span_id
+
+        def complete(result, exc=None):
+            cntl._done_factory = None
+            error_code = 0
+            try:
+                if exc is not None:
+                    raise exc
+                if cntl.failed():
+                    error_code = cntl.error_code
+                    reply(error_code, cntl.error_text
+                          or errors.describe(error_code), None)
+                else:
+                    reply(0, "", result)
+            except errors.RpcError as e:
+                error_code = e.code
+                reply(e.code, e.text, None)
+            except Exception as e:
+                error_code = errors.EINTERNAL
+                reply(errors.EINTERNAL, f"{type(e).__name__}: {e}", None)
+            finally:
+                self._account(span, status, start, error_code)
+
+        cntl._done_factory = lambda: _make_done(
+            f"{service}.{method_name} (http)", complete)
+        traced = span is not rpcz.NULL_SPAN
+        if traced:
+            rpcz.set_current_span(span)
+        try:
+            result = spec.fn(cntl, payload)
+        except Exception as e:
+            if cntl._deferred:
+                _log.exception("deferred handler raised")
+                return
+            complete(None, e)
+            return
+        finally:
+            if traced:
+                rpcz.set_current_span(None)
+        if not cntl._deferred:
+            complete(result)
+
+
+def _make_done(what: str, complete):
+    """A deferred handler's done closure: ``complete(response)`` runs
+    once; a second call raises."""
+    fired = [False]
+    fired_mu = threading.Lock()
+
+    def done(response=None):
+        with fired_mu:
+            if fired[0]:
+                raise RuntimeError(f"done() called twice for {what}")
+            fired[0] = True
+        complete(response)
+
+    return done
+
+
+# ---- the process's started servers (the sampler runs while any does) ----
+
+_servers: set[int] = set()
+_servers_mu = threading.Lock()
+
+
+def _register_server(s: Server) -> None:
+    with _servers_mu:
+        _servers.add(id(s))
+
+
+def _unregister_server(s: Server) -> int:
+    """Forget ``s``; the number of servers still started."""
+    with _servers_mu:
+        _servers.discard(id(s))
+        return len(_servers)
 
 
 # process-wide refcounts for the native method registry (several servers

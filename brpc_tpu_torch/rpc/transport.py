@@ -1,6 +1,7 @@
 """Transport -- the Python hub over the port's native socket core.
 
-A copy of the TRPC part of ``brpc_tpu/rpc/transport.py``.  It owns the
+A copy of the TRPC and HTTP part of ``brpc_tpu/rpc/transport.py``.  It
+owns the
 process-lifetime ctypes callbacks (native sockets keep raw pointers to
 them), routes complete messages by socket id to the registered handler
 (a client connection or a server), and wraps the native timer thread
@@ -8,9 +9,12 @@ for deadlines.  Plain requests and responses take the fast path: their
 metas are packed and parsed natively and cross into Python through the
 port's ``_fastrpc`` extension with no ctypes marshalling; every other
 frame (streams, user fields, attachments) arrives at ``on_message``
-with its meta bytes.  The JAX package's transport fault sites are kept
-(``fault.CONNECT``, ``fault.SEND``, ``fault.RECV``).  TLS and the
-h2/gRPC plane are left out.
+with its meta bytes.  HTTP messages on a server's port arrive whole
+at ``on_message`` (kind ``MSG_HTTP``); the HTTP client connects with
+:meth:`connect` and may switch a socket to raw mode (``MSG_RAW``:
+every read delivered as it comes).  The JAX package's transport fault
+sites are kept (``fault.CONNECT``, ``fault.SEND``, ``fault.RECV``).
+TLS and the h2/gRPC plane are left out.
 """
 from __future__ import annotations
 
@@ -22,9 +26,9 @@ from typing import Callable, Optional
 from .. import fault
 from .._core import lib
 from .._core.lib import (ACCEPTED_CB, FAILED_CB, MESSAGE_CB, MSG_HTTP,
-                         MSG_TRPC, RESPONSE_CB, TASK_CB, IOBuf)
+                         MSG_RAW, MSG_TRPC, RESPONSE_CB, TASK_CB, IOBuf)
 
-__all__ = ["Transport", "MSG_HTTP", "MSG_TRPC"]
+__all__ = ["Transport", "MSG_HTTP", "MSG_RAW", "MSG_TRPC"]
 
 _log = logging.getLogger(__name__)
 
@@ -198,6 +202,24 @@ class Transport:
                 self._request_handlers[sid.value] = on_request
         return sid.value, bound.value
 
+    def connect(self, host: str, port: int, on_message,
+                on_failed=None) -> int:
+        """A plain client socket: every complete message it reads (an
+        HTTP response, or in raw mode each read) arrives at
+        ``on_message``."""
+        if fault.ENABLED and fault.hit(fault.CONNECT, host=host,
+                                       port=port) is not None:
+            raise ConnectionError(
+                f"injected connect refusal to {host}:{port}")
+        sid = ctypes.c_uint64()
+        rc = self.core.brpc_connect(host.encode(), port, self._cb_message,
+                                    self._cb_failed, None, ctypes.byref(sid))
+        if rc != 0:
+            raise ConnectionError(f"connect to {host}:{port} failed")
+        with self._lock:
+            self._handlers[sid.value] = (on_message, on_failed)
+        return sid.value
+
     def connect_rpc(self, host: str, port: int, on_message, on_failed=None,
                     on_response=None) -> int:
         """Connect with the natively pre-parsed response path."""
@@ -268,11 +290,33 @@ class Transport:
                 return rc
         return self.core.brpc_socket_write_raw(sid, data, len(data), None)
 
+    def set_protocol(self, sid: int, kind: int) -> None:
+        """Pre-select the protocol of a connection's inbound bytes (a
+        raw-mode streaming client: ``MSG_RAW``)."""
+        self.core.brpc_socket_set_protocol(sid, kind)
+
     def close(self, sid: int, err: int = 0) -> None:
         self.core.brpc_socket_set_failed(sid, err)
 
     def alive(self, sid: int) -> bool:
         return bool(self.core.brpc_socket_alive(sid))
+
+    def socket_stats(self, sid: int) -> dict | None:
+        """Bytes and messages a live socket moved, and its peer."""
+        nread = ctypes.c_int64()
+        nwritten = ctypes.c_int64()
+        nmsg = ctypes.c_int64()
+        ip = ctypes.create_string_buffer(48)
+        port = ctypes.c_int()
+        rc = self.core.brpc_socket_stats(sid, ctypes.byref(nread),
+                                         ctypes.byref(nwritten),
+                                         ctypes.byref(nmsg), ip, 48,
+                                         ctypes.byref(port))
+        if rc != 0:
+            return None
+        return {"bytes_read": nread.value, "bytes_written": nwritten.value,
+                "messages_read": nmsg.value,
+                "remote": f"{ip.value.decode()}:{port.value}"}
 
     # ---- timers (native TimerThread) ----
 

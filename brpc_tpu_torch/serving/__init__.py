@@ -3,8 +3,9 @@ for speculative decoding, the dynamic batcher, the engine supervisor,
 and the ``Serving`` RPC service in front of them.
 
 Every live batcher, engine and supervisor registers here, weakly and by
-name (as in ``brpc_tpu/serving/__init__.py``), so a console can list
-them without keeping a closed component alive.  Every retired decode
+name (as in ``brpc_tpu/serving/__init__.py``), so the ``/serving``
+console page (``serving_snapshot``) lists them without keeping a closed
+component alive.  Every retired decode
 attempt (engine) and every finished supervised generation (supervisor)
 appends a summary record -- trace id, TTFT, inter-token gaps, prefix
 hit, restarts -- to a bounded ring here; ``generations_snapshot`` rolls
@@ -39,6 +40,20 @@ def _register_engine(e) -> None:
 def _register_supervisor(s) -> None:
     with _reg_mu:
         _supervisors[s.name] = s
+
+
+def serving_snapshot() -> dict:
+    """Live components' stats: the ``/serving`` console page's data."""
+    with _reg_mu:
+        batchers = dict(_batchers)
+        engines = dict(_engines)
+        supervisors = dict(_supervisors)
+    return {
+        "batchers": {name: b.stats() for name, b in sorted(batchers.items())},
+        "engines": {name: e.stats() for name, e in sorted(engines.items())},
+        "supervisors": {name: s.stats()
+                        for name, s in sorted(supervisors.items())},
+    }
 
 
 # ---- the recent-generation ring ----
@@ -107,7 +122,7 @@ def generations_snapshot(limit: int = 50) -> dict:
 from .batcher import DynamicBatcher  # noqa: E402,F401
 from .engine import DecodeEngine  # noqa: E402,F401
 from .service import (ScoreClient, ServingService,  # noqa: E402,F401
-                      register_serving)
+                      http_generate_handler, register_serving)
 from .speculative import (DraftModelProposer, DraftProposer,  # noqa: E402,F401
                           NGramProposer, as_proposer)
 from .supervisor import EngineSupervisor  # noqa: E402,F401

@@ -25,10 +25,16 @@ A copy of ``brpc_tpu/serving/service.py``'s ``Serving`` service and
     tensor field ``"x"`` in, a float32 tensor ``"y"`` out.
   Both answer ENOMETHOD "no batcher registered" without a batcher.
   :class:`ScoreClient` prefers ``ScoreT`` and downgrades to json
-  ``Score``, for good, on ENOMETHOD.
+  ``Score``, for good, on ENOMETHOD.  Over HTTP, ``POST /Serving/Score``
+  with the same JSON body reaches ``Score`` through the console's
+  RESTful bridge.
+  * ``GET /serving/generate?prompt=1,2,3&max_new_tokens=N`` -- the
+    no-TRPC client path (:func:`http_generate_handler`): a chunked
+    response of JSON lines, ``{"token": t}`` per token, then
+    ``{"done": true}`` (with ``"error"`` when the generation failed).
 
 Left out (ROADMAP): the multi-model ``deployments`` table (model plane,
-item 7) and the chunked HTTP generate route (item 6).
+item 7).
 """
 from __future__ import annotations
 
@@ -202,12 +208,57 @@ class ScoreClient:
         return np.asarray(resp["y"], np.float32)
 
 
+def http_generate_handler(engine):
+    """An HTTP handler streaming decode tokens as chunked JSON lines
+    through a ProgressiveAttachment: the no-TRPC client path."""
+    from ..rpc.progressive import ProgressiveResponse
+
+    def handler(req):
+        try:
+            prompt = [int(t) for t in
+                      (req.query.get("prompt") or "0").split(",") if t]
+            max_new = int(req.query.get("max_new_tokens", "16"))
+        except ValueError as e:
+            from ..builtin.router import http_response
+            return http_response(400, f"bad query: {e}\n")
+
+        def writer(pa):
+            def emit(tok: int) -> None:
+                # write returns -1 (never raises) once the connection
+                # died; raising here makes the engine retire the slot
+                # instead of decoding to nobody
+                if pa.write(json.dumps({"token": tok}) + "\n") != 0:
+                    raise errors.RpcError(errors.EFAILEDSOCKET,
+                                          "http client gone")
+
+            def on_done(err) -> None:
+                msg = {"done": True}
+                if err is not None:
+                    msg["error"] = err.code
+                pa.write(json.dumps(msg) + "\n")
+                pa.close()
+
+            engine.submit(prompt, max_new, emit, on_done)
+
+        return ProgressiveResponse(writer,
+                                   content_type="application/json-seq")
+
+    return handler
+
+
 def register_serving(server, batcher=None, engine=None,
-                     prefix_fetcher=None) -> ServingService:
-    """Register the ``Serving`` service on ``server`` (before
-    ``server.start()``): ``batcher`` answers Score/ScoreT, ``engine`` (a
-    DecodeEngine or an EngineSupervisor) Generate, ``prefix_fetcher``
-    warms a cache miss from the request's ``prefix_holders``."""
+                     prefix_fetcher=None,
+                     http_generate_path: Optional[str]
+                     = "/serving/generate") -> ServingService:
+    """Register the serving surface on ``server`` (before
+    ``server.start()``): the ``Serving`` service -- ``batcher`` answers
+    Score/ScoreT, ``engine`` (a DecodeEngine or an EngineSupervisor)
+    Generate, ``prefix_fetcher`` warms a cache miss from the request's
+    ``prefix_holders`` -- and, with an engine, the chunked HTTP generate
+    route at ``http_generate_path`` (None: no route)."""
     svc = ServingService(batcher, engine, prefix_fetcher)
     server.add_service(svc)
+    if engine is not None and http_generate_path:
+        server.add_http_handler(http_generate_path,
+                                http_generate_handler(engine))
     return svc

@@ -214,9 +214,12 @@ def test_port_runs_without_jax_or_brpc_tpu():
     a ``DynamicBatcher`` over the runner, called through a
     ``prefix_affinity`` cluster channel and a ``ParallelChannel``, and
     one Adam ``PS.UpdateT`` and ``PS.LookupT`` through a ``PSClient``,
-    and one KV page migration into a ``Server(enable_dcn=True)``,
-    leaves jax and the JAX package out of sys.modules; the only native
-    core mapped is the port's own build."""
+    one KV page migration into a ``Server(enable_dcn=True)``, and the
+    HTTP face (``builtin.services``, ``rpc.http``, ``builtin.sampler``:
+    ``/status`` and a chunked ``/serving/generate`` through the port's
+    ``HttpChannel``), leaves jax and the JAX package out of
+    sys.modules; the only native core mapped is the port's own
+    build."""
     code = textwrap.dedent("""
         import json, sys, threading
         import numpy as np
@@ -230,6 +233,10 @@ def test_port_runs_without_jax_or_brpc_tpu():
         import brpc_tpu_torch.rpc.combo_channels
         import brpc_tpu_torch.psserve, brpc_tpu_torch.train
         import brpc_tpu_torch.models.parameter_server
+        import brpc_tpu_torch.builtin.services, brpc_tpu_torch.rpc.http
+        import brpc_tpu_torch.builtin.sampler
+        import brpc_tpu_torch.tools.parallel_http
+        import brpc_tpu_torch.tools.rpc_view
         from brpc_tpu_torch.train.trainer import DataParallelTrainer
         from brpc_tpu_torch.butil.endpoint import EndPoint
         from brpc_tpu_torch.policy import health_check
@@ -288,6 +295,16 @@ def test_port_runs_without_jax_or_brpc_tpu():
         out = fan.call_sync("Serving", "Score", {"x": [1, 2, 3]},
                             serializer="json")
         assert [int(v) for v in out[0]["y"]] == [int(v) for v in y], out
+        web = rpc.HttpChannel(f"127.0.0.1:{server.port}")
+        assert b"Serving.Generate" in web.get("/status").body
+        pieces = []
+        reader = web.request_stream(
+            "GET", "/serving/generate?prompt=1,2,3&max_new_tokens=2",
+            on_data=pieces.append)
+        assert reader.wait(60) and reader.error is None, reader.error
+        lines = [json.loads(x) for x in b"".join(pieces).splitlines()]
+        assert [m["token"] for m in lines if "token" in m] == toks, lines
+        web.close()
         assert global_breaker() is not None
         from brpc_tpu_torch import psserve
         from brpc_tpu_torch.train import OptimizerSpec
@@ -303,8 +320,11 @@ def test_port_runs_without_jax_or_brpc_tpu():
                     optimizer=OptimizerSpec("adam", lr=0.1))
         assert pcli.lookup([1]).shape == (1, 4)
         assert shard.stats()["opt_slots"] == ["m", "t", "v"]
-        ps.stop(); ps.join()
+        # no call broke an endpoint; checked before the shutdown, whose
+        # closed connection marks the PS endpoint broken on the client's
+        # own callback thread
         assert not health_check.broken_endpoints()
+        ps.stop(); ps.join()
         import brpc_tpu_torch.migrate as mig
         from brpc_tpu_torch.models.runner import run_prefill
         p9 = list(range(1, 10))
