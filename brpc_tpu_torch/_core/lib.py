@@ -5,7 +5,8 @@ socket, framing, timer and IOBuf entry points of the TRPC transport
 and of the HTTP client (``brpc_connect``, raw-mode sockets), the
 counters the builtin console reads,
 the latency recorder of ``bvar``, the serving hot path's native emit
-rings (:class:`TokenRing`), batch pad and page-table fill in
+rings (:class:`TokenRing`), batch pad and page-table fill, the flight
+recorder and the syscall counters (read by ``butil/flight.py``) in
 ``libbrpc_core_torch.so``, and the ``_fastrpc`` extension linked
 against it (its ``batch_pad``, ``page_table_fill``, ``tokring_push``
 and span queue ``spanq_*``), both built by :mod:`.build` at the first
@@ -142,6 +143,30 @@ _SIGS = {
                                ctypes.POINTER(ctypes.c_int),
                                ctypes.POINTER(ctypes.c_int32)]),
     "brpc_tokring_size": (ctypes.c_int64, [ctypes.c_void_p]),
+    # the native flight recorder (src/cc/butil/flight.h): per-thread
+    # event rings, their merged dump and per-thread table, the stats,
+    # and the probes the recorder's tests drive
+    "brpc_flight_enable": (None, [ctypes.c_int]),
+    "brpc_flight_enabled": (ctypes.c_int, []),
+    "brpc_flight_dump": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_size_t,
+                                        ctypes.c_int]),
+    "brpc_flight_threads": (ctypes.c_int, [ctypes.c_char_p,
+                                           ctypes.c_size_t]),
+    "brpc_flight_stats": (None, [ctypes.POINTER(ctypes.c_int64),
+                                 ctypes.POINTER(ctypes.c_int64),
+                                 ctypes.POINTER(ctypes.c_int64)]),
+    "brpc_flight_selftest_emit": (None, [ctypes.c_int, ctypes.c_uint64]),
+    "brpc_flight_stall_probe": (ctypes.c_int, [ctypes.c_int]),
+    # syscall attribution: process-wide, per write size, per socket
+    "brpc_syscall_counters": (None, [ctypes.POINTER(ctypes.c_int64),
+                                     ctypes.POINTER(ctypes.c_int64),
+                                     ctypes.POINTER(ctypes.c_int64),
+                                     ctypes.POINTER(ctypes.c_int64)]),
+    "brpc_write_size_hist": (ctypes.c_int, [ctypes.POINTER(ctypes.c_int64),
+                                            ctypes.c_int]),
+    "brpc_socket_syscalls": (ctypes.c_int, [ctypes.c_uint64,
+                                            ctypes.POINTER(ctypes.c_int64),
+                                            ctypes.POINTER(ctypes.c_int64)]),
     "brpc_batch_pad": (None, [ctypes.POINTER(ctypes.c_void_p),
                               ctypes.POINTER(ctypes.c_int64),
                               ctypes.c_int, ctypes.c_void_p,

@@ -6,19 +6,22 @@ latency sparklines), ``/status`` (per-method counts and latency from
 ``MethodStatus``), ``/vars`` (``?filter=`` wildcard), ``/flags`` (live
 edit with ``?setvalue=``), ``/health``, ``/version``, ``/connections``,
 ``/sockets``, ``/bthreads`` (the native executor's counters), ``/rpcz``
-(recent spans; ``?trace_id=`` the tree-ordered timeline of one trace),
+(recent spans; ``?trace_id=`` the tree-ordered timeline of one trace,
+from the span database when the in-memory store lost it),
 ``/brpc_metrics`` (Prometheus text), ``/services`` and ``/protobufs``
 (method inventory), ``/memory``, ``/serving``,
 ``/serving/generations``, ``/kvcache``, ``/psserve``, ``/migration``,
 ``/hotspots`` (the always-on stage-tagged sampler's ring;
 ``?seconds=N`` a 100 Hz burst, ``?fmt=collapsed|pb``),
 ``/hotspots/locks`` (the lock ledger and the lock-order witness),
-``/vlog`` and ``/dir`` (off unless ``enable_dir_service``).
+``/flightrecorder`` (the native flight recorder: the per-thread table,
+the merged event tail and the syscall counters; ``?limit=N``,
+``?fmt=json``), ``/vlog`` and ``/dir`` (off unless
+``enable_dir_service``).
 
 The pages whose module the port has not ported yet answer 501 and name
 the ROADMAP item that brings them: ``/ici`` (Queue 1 item 8),
-``/cluster`` and ``/fleet`` (item 7), ``/flightrecorder``
-(``butil/flight.py``), the on-demand profilers
+``/cluster`` and ``/fleet`` (item 7), the on-demand profilers
 ``/hotspots/{cpu,native,contention,heap,growth}`` and ``/pprof/*``
 (``builtin/profiler.py``).  A page whose data source raises answers 500
 with the traceback (the router's rule).
@@ -191,9 +194,11 @@ def build_routes(server) -> dict:
         limit = int(req.query.get("limit", "50"))
         if tid:
             # the timeline of ONE trace, tree-ordered with relative
-            # offsets (the port keeps no on-disk span database, and
-            # the fleet's cross-process stitching waits for item 7)
+            # offsets; the span database when the in-memory store lost
+            # it (the fleet's cross-process stitching waits for item 7)
             spans = rpcz.recent_spans(2048, int(tid))
+            if not spans:
+                spans = rpcz.load_disk_spans(2048, int(tid))
             if not spans:
                 return f"no spans collected for trace {tid}\n"
             return rpcz.format_trace(spans)
@@ -362,6 +367,10 @@ def build_routes(server) -> dict:
         snap = psserve_snapshot()
         if not snap["shards"] and not snap["clients"]:
             return "no parameter-server components registered\n"
+        # a PS process is the fleet's I/O hot spot: its syscall
+        # counters ride beside the shard tables
+        from ..butil import flight
+        snap["syscalls"] = flight.syscall_counters()
         return json.dumps(snap, indent=1), "application/json"
 
     def migration_page(req):
@@ -543,6 +552,34 @@ def build_routes(server) -> dict:
         except OSError as e:
             return f"cannot read {target}: {e}\n"
 
+    def flightrecorder_page(req):
+        # the native flight recorder: the merged tail of the per-thread
+        # rings, what every native thread last did, the recorder's
+        # stats and the syscall counters
+        from ..butil import flight
+        try:
+            limit = min(4096, max(1, int(req.query.get("limit", "200"))))
+        except ValueError:
+            limit = 200
+        if req.query.get("fmt") == "json":
+            return json.dumps({
+                "available": flight.available(),
+                "enabled": flight.enabled(),
+                "stats": flight.stats(),
+                "syscalls": flight.syscall_counters(),
+                "bytes_per_write": flight.write_size_hist(),
+                "threads": flight.threads(),
+                "events": flight.events(limit),
+            }, indent=1), "application/json"
+        hist = flight.write_size_hist()
+        hist_line = "  ".join(f"le_{k}={v}" for k, v in hist.items()
+                              if v) or "(no writes yet)"
+        return (flight.report(limit)
+                + f"\nbytes_per_write: {hist_line}\n"
+                + "\nargs: ?limit=N (tail size) ?fmt=json\n"
+                + "flip recording live: /flags?setvalue="
+                + "flight_recorder_enabled&value=false\n")
+
     item7 = _not_ported("ROADMAP Queue 1 item 7 (the cluster front door "
                         "and the fleet)")
     profiler = _not_ported("builtin/profiler.py (ROADMAP Queue 1 item 6)")
@@ -570,8 +607,7 @@ def build_routes(server) -> dict:
         "/cluster": item7,
         "/fleet": item7,
         "/psserve": psserve_page,
-        "/flightrecorder": _not_ported("butil/flight.py (ROADMAP Queue 1 "
-                                       "item 6)"),
+        "/flightrecorder": flightrecorder_page,
         "/hotspots": hotspots_index,
         "/hotspots/locks": hotspots_locks,
         "/hotspots/cpu": profiler,
@@ -653,8 +689,13 @@ def _fmt(v):
 
 def _apply_flag_side_effects(name: str) -> None:
     """What setting a flag on /flags must do beyond storing it (rpcz
-    reads its flags directly)."""
-    if name == "hotspot_sampler_enabled":
+    reads its enable and sample-rate flags directly)."""
+    if name == "rpcz_database_dir":
+        rpcz.set_database_dir(get_flag("rpcz_database_dir", "") or None)
+    elif name == "flight_recorder_enabled":
+        from ..butil import flight
+        flight.apply_flag()
+    elif name == "hotspot_sampler_enabled":
         from .sampler import HotspotSampler
         if get_flag("hotspot_sampler_enabled", True):
             HotspotSampler.ensure_started()

@@ -2,8 +2,9 @@
 
 Every tunable is defined near its use with :func:`define_flag`;
 :func:`set_flag` edits the ones marked reloadable (``force=True`` edits
-any).  Defined here: the rpcz flags; ``native_path.py`` defines the
-hot path's kill switch ``native_hot_path_enabled``.
+any).  Defined here: the rpcz flags (``rpcz_database_dir`` among
+them); ``native_path.py`` defines the hot path's kill switch
+``native_hot_path_enabled``.
 """
 from __future__ import annotations
 
@@ -74,4 +75,7 @@ define_flag("rpcz_enabled", False, "Collect per-RPC spans (off by default "
             "like FLAGS_enable_rpcz; span objects are only built when on)",
             reloadable=True)
 define_flag("rpcz_sample_rate", 1.0, "Fraction of spans kept",
+            reloadable=True)
+define_flag("rpcz_database_dir", "", "Persist collected spans to recordio "
+            "segments under this directory; empty = in-memory only",
             reloadable=True)

@@ -70,3 +70,12 @@ def page_table_fill(table, lists, slot_idx) -> None:
     the table width): one native call that releases the interpreter
     lock for the fill."""
     _fastrpc_mod().page_table_fill(table, lists, slot_idx)
+
+
+def flight_recorder():
+    """The native flight recorder's surface (``butil/flight.py`` over
+    ``src/cc/butil/flight.h``).  It observes the native core and has no
+    Python counterpart, so the hot-path flag does not switch it; the
+    flag ``flight_recorder_enabled`` does."""
+    from .butil import flight
+    return flight

@@ -16,19 +16,22 @@ runs, so the serving layers' spans nest under it.
 HTTP requests on the same port go to the builtin console router
 (``builtin/router.py``, installed at ``start`` unless
 ``has_builtin_services`` is off, when they get a 404): the console
-pages, user handlers (:meth:`Server.add_http_handler`, e.g. the chunked
-``/serving/generate``) and the RESTful bridge onto RPC methods
+pages, user handlers (:meth:`Server.add_http_handler`, e.g. the
+chunked ``/serving/generate``) and the RESTful bridge onto RPC methods
 (:meth:`Server.invoke_restful`, through the same MethodStatus
 accounting, inflight count and rpcz span as TRPC, and answered
-asynchronously when the handler defers).  ``start`` exposes the process default
-variables (cpu, rss, fds), starts the always-on stage-tagged sampler
-(``builtin/sampler.py``; the last server to join stops it), and with
-``enable_dcn`` registers the ``_dcn`` handshake service.  Left out
+asynchronously when the handler defers). ``start`` exposes the process
+default variables (cpu, rss, fds) and the flight recorder's, starts
+the always-on stage-tagged sampler (``builtin/sampler.py``; the last
+server to join stops it), and with ``enable_dcn`` registers the
+``_dcn`` handshake service. With the ``rpc_dump`` flag on, every TRPC
+request is offered to ``rpc/rpc_dump.py``'s sampler before dispatch
+(its wire meta and body, for ``tools/rpc_replay.py``). Left out
 (ROADMAP): the other protocols on the port (gRPC, redis, memcache,
 thrift, mongo), the ``grpc.health.v1.Health`` builtin and the RESTful
 bridge's json2pb branch (both with the gRPC slice), auth,
-interceptors, tag pools, ``rpc_dump``, the server and per-method
-concurrency limiters and the rail.
+interceptors, tag pools, the server and per-method concurrency
+limiters and the rail.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from ..bvar import Adder, LatencyRecorder, PassiveStatus
 from ..bvar.default_variables import expose_default_variables
 from . import meta as M
 from .controller import Controller
+from .rpc_dump import RPC_DUMP, RpcDumper
 from .serialization import compress, decompress
 from .service import MethodSpec, Service
 from .stream import StreamRegistry
@@ -158,6 +162,9 @@ class Server:
             from ..builtin.router import HttpRouter
             self._http_router = HttpRouter(self)
         expose_default_variables()
+        # the flight recorder's and the syscall counters
+        from ..butil.flight import expose_flight_variables
+        expose_flight_variables()
         # the always-on stage-tagged sampler behind /hotspots
         # (flag-gated: hotspot_sampler_enabled, live on /flags)
         from ..builtin.sampler import HotspotSampler
@@ -277,7 +284,7 @@ class Server:
         except ValueError:
             return
         if meta.msg_type == M.MSG_REQUEST:
-            self._process_request(sid, meta, body)
+            self._process_request(sid, meta, body, meta_bytes)
         elif meta.msg_type in (M.MSG_STREAM_DATA, M.MSG_STREAM_FEEDBACK,
                                M.MSG_STREAM_CLOSE):
             StreamRegistry.instance().on_frame(sid, meta, body)
@@ -311,7 +318,12 @@ class Server:
             sid, meta.correlation_id, meta.attempt, code,
             text or errors.describe(code), "", b"")
 
-    def _process_request(self, sid: int, meta: M.RpcMeta, body) -> None:
+    def _process_request(self, sid: int, meta: M.RpcMeta, body,
+                         meta_bytes: bytes | None = None) -> None:
+        # sampled capture for rpc_replay: off, one flag read (the fast
+        # path's meta is encoded only when dumping is on)
+        if RPC_DUMP.value:
+            RpcDumper.instance().sample(meta_bytes or meta.encode(), body)
         start = time.monotonic()
         if self._stopping:
             self._respond_error(sid, meta, errors.ELOGOFF)

@@ -1,5 +1,5 @@
-"""rpcz -- per-RPC and per-stage trace spans (a copy of
-``brpc_tpu/rpcz.py`` without its on-disk span database).
+"""rpcz -- per-RPC and per-stage trace spans and their on-disk database
+(a copy of ``brpc_tpu/rpcz.py``).
 
 A span records one timeline entry: kind (server, client, batch,
 prefill, decode, generation), service and method, start and end, error
@@ -20,11 +20,22 @@ observe the caller's own prior submissions.
 Tracing is off by default (the ``rpcz_enabled`` flag): span objects
 are only built when it is on, and the hot path otherwise touches one
 shared null span.
+
+The span database (``set_database_dir``, the ``rpcz_database_dir``
+flag): every span that lands in the recent-span store is also appended,
+on the collector or drainer thread, to recordio segments of JSON
+records (``span_to_dict``'s keys) under that directory; a segment
+rotates at 16 MiB and the newest 4 are kept.  ``load_disk_spans`` reads
+them back, so ``/rpcz?trace_id=`` finds a trace the bounded in-memory
+store has lost.  Segments are the JAX package's format, in both
+directions.
 """
 from __future__ import annotations
 
+import atexit
 import contextvars
 import itertools
+import json
 import os
 import random
 import threading
@@ -35,6 +46,7 @@ from dataclasses import dataclass, field
 from . import flags
 from ._core import lib as _lib
 from .butil.lockprof import InstrumentedLock
+from .butil.recordio import RecordReader, RecordWriter
 
 # the CURRENT span is a context variable: it follows a context copied
 # into another thread or task, and nothing else
@@ -200,7 +212,8 @@ def current_trace_ctx() -> tuple[int, int, bool]:
 
 
 def _land(spans: list) -> None:
-    """Append spans to the recent-span store, numbering them."""
+    """Append spans to the recent-span store, numbering them, and to the
+    span database when one is set."""
     global _collect_seq
     with _collect_lock:
         for span in spans:
@@ -210,6 +223,141 @@ def _land(spans: list) -> None:
             except AttributeError:
                 pass      # a foreign probe object on the native queue
         _collected.extend(spans)
+    with _db_lock:
+        if _db_dir is not None:
+            for span in spans:
+                try:
+                    _db_append_locked(span)
+                except (OSError, AttributeError):
+                    pass  # disk trouble must never break collection
+
+
+# ---- the on-disk span database: recordio-framed JSON segments with
+# size rotation, written on the collector/drainer thread so the RPC
+# path never touches disk ----
+_db_lock = threading.Lock()
+_db_dir: str | None = None
+_db_writer = None
+_db_file = None
+_db_bytes = 0
+_DB_ROTATE_BYTES = 16 << 20
+_DB_KEEP_FILES = 4
+
+
+def set_database_dir(path: str | None) -> None:
+    """Persist spans under ``path`` (None or "": stop persisting); the
+    ``rpcz_database_dir`` flag follows."""
+    global _db_dir, _db_writer, _db_file, _db_bytes
+    flags.set_flag("rpcz_database_dir", path or "", force=True)
+    with _db_lock:
+        if _db_file is not None:
+            try:
+                _db_file.close()
+            except OSError:
+                pass
+        _db_writer = _db_file = None
+        _db_bytes = 0
+        _db_dir = path or None
+        if _db_dir:
+            os.makedirs(_db_dir, exist_ok=True)
+
+
+def _db_append_locked(span: Span) -> None:
+    global _db_writer, _db_file, _db_bytes
+    if _db_writer is None or _db_bytes >= _DB_ROTATE_BYTES:
+        if _db_file is not None:
+            try:
+                _db_file.close()
+            except OSError:
+                pass
+        # prune BEFORE opening the new segment (a restart into a full
+        # directory too): keep the newest KEEP-1, so KEEP files remain
+        # with the one about to open
+        segs = sorted(f for f in os.listdir(_db_dir)
+                      if f.startswith("spans-"))
+        for old in segs[:-(_DB_KEEP_FILES - 1)] if _DB_KEEP_FILES > 1 \
+                else segs:
+            try:
+                os.unlink(os.path.join(_db_dir, old))
+            except OSError:
+                pass
+        name = os.path.join(_db_dir, f"spans-{now_us()}.rio")
+        _db_file = open(name, "ab")
+        _db_writer = RecordWriter(_db_file)
+        _db_bytes = 0
+    rec = json.dumps(span_to_dict(span)).encode()
+    _db_writer.write(rec)
+    # no flush per span (a write(2) each would defeat the buffer): the
+    # reader flushes the live segment first, and RecordReader resyncs
+    # past a torn tail after a crash
+    _db_bytes += len(rec) + 20
+
+
+def load_disk_spans(limit: int = 200,
+                    trace_id: int | None = None) -> list[Span]:
+    """The persisted spans (of one trace when ``trace_id`` is given),
+    oldest first, at most ``limit`` of the newest.  Newest segments are
+    read first and the scan stops once ``limit`` spans are found."""
+    with _db_lock:
+        d = _db_dir
+        if _db_writer is not None:
+            try:
+                _db_writer.flush()   # make the live segment readable
+            except OSError:
+                pass
+    if not d or not os.path.isdir(d):
+        return []
+    out: list[Span] = []
+    for name in sorted((f for f in os.listdir(d)
+                        if f.startswith("spans-")), reverse=True):
+        seg: list[Span] = []
+        try:
+            with open(os.path.join(d, name), "rb") as f:
+                for _meta, body in RecordReader(f):
+                    try:
+                        rec = json.loads(body.decode())
+                    except ValueError:
+                        continue
+                    if trace_id is not None and \
+                            rec.get("trace_id") != trace_id:
+                        continue
+                    span = span_from_dict(rec)
+                    if span is not None:
+                        seg.append(span)
+        except OSError:
+            continue
+        out = seg + out
+        if len(out) >= limit:
+            break
+    return out[-limit:]
+
+
+def span_to_dict(span: Span) -> dict:
+    """One span as a JSON-able dict: the span database's record."""
+    return {
+        "trace_id": span.trace_id, "span_id": span.span_id,
+        "parent_span_id": span.parent_span_id, "service": span.service,
+        "method": span.method, "remote_side": span.remote_side,
+        "start_us": span.start_us, "end_us": span.end_us,
+        "request_size": span.request_size,
+        "response_size": span.response_size,
+        "error_code": span.error_code, "kind": span.kind,
+        "recovered_from": span.recovered_from,
+        "migrated_from": span.migrated_from,
+        "annotations": list(span.annotations)}
+
+
+def span_from_dict(rec: dict) -> Span | None:
+    """The inverse of :func:`span_to_dict`; None for a malformed record
+    (one bad record must not stop a read)."""
+    try:
+        rec = dict(rec)
+        ann = [tuple(a) for a in rec.pop("annotations", ())]
+        rec.pop("sampled", None)
+        rec.pop("seq", None)
+        return Span(annotations=ann, **rec)
+    except (TypeError, ValueError, AttributeError):
+        return None
 
 
 class _SpanSample:
@@ -241,6 +389,8 @@ _spanq_parked = False
 # exclusive access to the native queue for callers that need the
 # drainer off it (tests pushing non-Span probes)
 _spanq_pause = threading.Lock()
+# set at interpreter exit: the drainer ends its loop
+_spanq_stop = False
 
 
 def _drain_native_spanq() -> None:
@@ -271,7 +421,7 @@ def _spanq_loop() -> None:
     the drainer: no wakeup is lost."""
     global _spanq_parked
     fb = _lib.fastrpc
-    while True:
+    while not _spanq_stop:
         try:
             with _spanq_pause:
                 _drain_native_spanq()
@@ -293,9 +443,25 @@ def _ensure_spanq_drainer() -> None:
     global _spanq_thread
     with _spanq_mu:
         if _spanq_thread is None or not _spanq_thread.is_alive():
+            if _spanq_thread is None:
+                atexit.register(_stop_spanq_drainer)
             _spanq_thread = threading.Thread(
                 target=_spanq_loop, daemon=True, name="rpcz-spanq")
             _spanq_thread.start()
+
+
+def _stop_spanq_drainer() -> None:
+    """At interpreter exit, end the drainer and join it.  The drainer
+    records into the native flight recorder, so the core keeps per-thread
+    state for it; a daemon thread torn down during finalization runs its
+    native thread-exit hooks while the process's exit destroys the
+    core's statics, and the process aborts on a corrupted heap."""
+    global _spanq_stop
+    _spanq_stop = True
+    _spanq_wake.set()
+    t = _spanq_thread
+    if t is not None:
+        t.join(2.0)
 
 
 def submit(span: Span) -> None:

@@ -405,8 +405,6 @@ class EngineSupervisor:
                 pin, sreq.pin = sreq.pin, None
             if pin is not None:
                 pin.release()
-            with self._mu:
-                self._live.pop(sreq.sid, None)
             self._close_attempt_span(sreq, err)
             with sreq.mu:
                 emitted = len(sreq.emitted)
@@ -427,6 +425,12 @@ class EngineSupervisor:
                     sreq.user_done(err)
                 except Exception:
                     _log.exception("supervised on_done callback raised")
+            # live until its terminal is delivered: join_idle() returning
+            # means every on_done has run (the JAX package drops the
+            # request first, and a caller could see idle before its
+            # last on_done)
+            with self._mu:
+                self._live.pop(sreq.sid, None)
 
     # ---- the watchdog ----
 
@@ -569,11 +573,14 @@ class EngineSupervisor:
 
     def _fail_permanently(self, reason: str) -> None:
         """Too many crashes inside the window: stop rebuilding, and give
-        every pending request a definite error."""
+        every pending request a definite error.  The state reads
+        "failed" before any parked re-admission wakes to its error, so a
+        caller that got the error sees it (the JAX package publishes the
+        state after the wake-up)."""
+        self.state = "failed"
         with self._ecv:
             self._failed = True
             self._ecv.notify_all()
-        self.state = "failed"
         err = errors.RpcError(
             errors.EINTERNAL,
             f"engine supervisor gave up after "

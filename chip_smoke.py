@@ -243,6 +243,28 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      against ScoreT (and step 7's), the console scrape's p50/p99 and
      the sampler's on/off tokens/s;
 
+ 16. request dumps and replay, the span database and the flight
+     recorder, the wide configuration with step 4's weights, prompts
+     and oracle, one ``Server`` (``register_serving(batcher=,
+     engine=)``) with ``rpc_dump`` at ratio 1, rpcz with
+     ``rpcz_database_dir`` and the flight recorder on (dumps and span
+     segments under ``build/capture/``): 8 traced 32-token
+     ``Serving.Generate`` streams over TRPC (K1) and a ``ScoreT`` batch
+     of 8 rows at S256 (K2).  The dump holds one record a request, each
+     meta decoding to the call made.  The in-memory span ring cleared,
+     ``load_disk_spans`` and ``/rpcz?trace_id=`` give each Generate's
+     tree as it was ((kind, service, method, parent) equal, the page
+     text equal).  ``/flightrecorder?fmt=json`` read twice during a
+     warm pass names live ``worker/`` and ``epoll/`` threads whose
+     event counts advance, and syscall counters above 0.  The dump
+     replayed (``run_replay``) against a second ``Server`` with the same
+     weights: 0 errors; each ``ScoreT`` record replayed again alone
+     answers its original rows (max abs diff printed, ids equal to the
+     unbatched forward); each ``Generate`` record, replayed without a
+     client stream, is accepted and decodes to its end.  Then 5 pairs
+     of warm 8-stream passes with all three off and on, the order
+     alternating (tokens/s, on/off median; printed, not gated);
+
 and prints ``{"kernels": [...]}`` (K1 and K2: the PS and training
 phases run torch ops only), the card line, and as the LAST line
 ``{"ok": true, "device": {...}}``.
@@ -253,6 +275,7 @@ the run goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -2824,7 +2847,7 @@ CONSOLE_PAGES = ("/status", "/vars", "/brpc_metrics", "/rpcz", "/serving",
                  "/kvcache", "/hotspots", "/hotspots/locks")
 # the routes whose module the port lacks: 501, naming what brings them
 NOT_PORTED_ROUTES = frozenset((
-    "/ici", "/cluster", "/fleet", "/flightrecorder", "/hotspots/cpu",
+    "/ici", "/cluster", "/fleet", "/hotspots/cpu",
     "/hotspots/native", "/hotspots/contention", "/hotspots/heap",
     "/hotspots/growth", "/pprof/profile", "/pprof/profile_native",
     "/pprof/contention", "/pprof/heap", "/pprof/growth"))
@@ -3223,6 +3246,304 @@ def serve_http(dev, cfg, ctx, card, rpc_rec, control_rec):
         "sampler_pass_ms": sample_pass_ms,
         "sampler_threads_walked": max(walked),
         "routes": routes,
+        "wall_s": time.perf_counter() - t_phase,
+        "launches": counts.as_dict(), "paged_cuda_launches": counts.paged_cuda,
+    }
+
+
+# ---- step 16: request dumps and replay, the span database, the flight
+# recorder --------------------------------------------------------------
+
+CAPTURE_PAIRS = 5    # warm pass pairs, capture off and on
+CAPTURE_DIR = os.path.join(ROOT, "build", "capture")
+
+
+def serve_capture(dev, cfg, ctx, card):
+    """Step 16 (see the module docstring): (b) behind one Server with
+    ``rpc_dump`` (ratio 1), rpcz with its span database and the flight
+    recorder on; the dump replayed against a second Server with the
+    same weights; step 4's weights, prompts and dense oracle."""
+    import shutil
+    import brpc_tpu_torch.models as models
+    import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.rpcz as rpcz
+    import brpc_tpu_torch.serving as serving
+    from brpc_tpu_torch import flags
+    from brpc_tpu_torch.butil import flight
+    from brpc_tpu_torch.butil.endpoint import str2endpoint
+    from brpc_tpu_torch.ici.block_pool import BlockPool
+    from brpc_tpu_torch.rpc import meta as M
+    from brpc_tpu_torch.rpc.rpc_dump import RpcDumper
+    from brpc_tpu_torch.rpc.serialization import get_serializer
+    from brpc_tpu_torch.tools import rpc_replay
+    geo, prompts, oracle = ctx["geometry"], ctx["prompts"], ctx["oracle"]
+    params = ctx["params"]
+    toks = N_REQUESTS * NEW_TOKENS
+    counts = Counts()
+    t_phase = time.perf_counter()
+    label = "b capture"
+    # the checks' references, outside every counting window
+    want = [unbatched_ids(params, cfg, dev, p) for p in prompts]
+    shutil.rmtree(CAPTURE_DIR, ignore_errors=True)
+    dump_dir = os.path.join(CAPTURE_DIR, "dump")
+    span_dir = os.path.join(CAPTURE_DIR, "spans")
+
+    def capture(on, dump_to=dump_dir):
+        """rpc_dump, rpcz with its span database and the flight recorder,
+        all on or all off."""
+        flags.set_flag("rpc_dump_dir", dump_to, force=True)
+        flags.set_flag("rpc_dump_ratio", 1, force=True)
+        flags.set_flag("rpc_dump", on, force=True)
+        rpcz.set_enabled(on)
+        rpcz.set_database_dir(span_dir if on else None)
+        flight.set_enabled(on)
+        if not on:
+            RpcDumper.instance().close()
+
+    def streams_equal(name, streams):
+        for i, (c, o) in enumerate(zip(streams, oracle)):
+            check(c == o, f"{label} {name}: stream {i} streamed {c}, "
+                          f"dense oracle {o}")
+
+    class Replica:
+        def __init__(self, name):
+            # a block pool each: the two replicas live side by side
+            self.store = models.make_store_for(
+                cfg, page_tokens=geo["page_tokens"],
+                max_blocks=geo["max_blocks"], device=dev,
+                pool=BlockPool(dev), name=f"{name}_kv")
+            self.free0 = self.store.pagepool.pool.stats()["classes"]
+            self.engine = serving.DecodeEngine(
+                runner=models.TransformerRunner(params, cfg, store=self.store,
+                                                device=dev, name=name),
+                store=self.store, num_slots=geo["num_slots"],
+                max_pages_per_slot=geo["max_pages"],
+                prefill_buckets=geo["buckets"], device=dev, name=name)
+            self.batcher = serving.DynamicBatcher(
+                models.TransformerRunner(params, cfg, device=dev,
+                                         name=f"{name} score"),
+                max_batch_size=8, max_delay_us=5000,
+                length_buckets=(64, 256), dtype=np.int32,
+                name=f"{name}_score")
+            self.server = rpc.Server()
+            serving.register_serving(self.server, batcher=self.batcher,
+                                     engine=self.engine)
+            self.server.start("127.0.0.1", 0)
+            self.port = self.server.port
+
+        def close(self):
+            self.server.stop()
+            self.server.join()
+            self.engine.close()
+            self.batcher.close()
+            self.store.clear()
+            check(self.store.pagepool.blocks_leased() == 0 and
+                  self.store.pagepool.pool.stats()["classes"] == self.free0,
+                  f"{label}: a page pool did not return to its baseline")
+
+    def warm_pass(name):
+        streams, _, _, _, wall = counts.window(lambda: rpc_generate_all(
+            src.port, prompts, f"{label} {name}"))
+        streams_equal(name, streams)
+        return wall
+
+    src = Replica("b_capture")
+    dst = None
+    web = rpc.HttpChannel(f"127.0.0.1:{src.port}", timeout_ms=60_000)
+    try:
+        # -- the captured pass: 8 traced Generate streams, one ScoreT
+        # batch of 8 rows (B8 S256)
+        capture(True)
+        roots = []
+        streams, hits, _, _, _ = counts.window(lambda: rpc_generate_all(
+            src.port, prompts, f"{label} captured", roots=roots))
+        streams_equal("captured", streams)
+        scored, _, _ = counts.window(lambda: score_calls(
+            src.port, prompts, N_REQUESTS, 0, f"{label} scoret"))
+        hold_rows(f"{label} scoret", scored, want)
+        check(counts.paged > 0 and counts.flash > 0,
+              f"{label}: launches {counts.as_dict()}")
+        check(src.engine.join_idle(60), f"{label}: the engine did not go "
+                                        f"idle")
+        flags.set_flag("rpc_dump", False, force=True)
+        RpcDumper.instance().close()
+        # -- 1. the dump: one record a request, each meta the call made
+        records = rpc_replay.load_records(dump_dir)
+        called = sorted([("Serving", "Generate")] * N_REQUESTS
+                        + [("Serving", "ScoreT")] * N_REQUESTS)
+        metas = [M.RpcMeta.decode(m) for m, _ in records]
+        check(sorted((m.service, m.method) for m in metas) == called,
+              f"{label}: the dump holds "
+              f"{sorted((m.service, m.method) for m in metas)}")
+        # -- 3. the span database: each Generate's tree, the in-memory
+        # ring cleared, read back from disk and through /rpcz
+        def tree(spans):
+            return sorted((s.kind, s.service, s.method, s.parent_span_id)
+                          for s in spans)
+
+        def ring(root):
+            return rpcz.recent_spans(2048, trace_id=root.trace_id)
+
+        # (rpc_generate_all submitted the client roots): one span of
+        # each kind a trace
+        kinds = sorted(("client", "server", "decode", "prefill"))
+        deadline = time.monotonic() + 10
+        while not all(set(kinds) <= {s.kind for s in ring(r)}
+                      for r in roots) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        before = {r.trace_id: ring(r) for r in roots}
+        for r in roots:
+            got = sorted(s.kind for s in before[r.trace_id])
+            check(got == kinds, f"{label}: trace {r.trace_id} holds the "
+                                f"spans {got}, one each of {kinds} wanted")
+        pages = {tid: rpcz.format_trace(sp) for tid, sp in before.items()}
+        with rpcz._collect_lock:
+            rpcz._collected.clear()
+        span_trees = []
+        for tid, spans in before.items():
+            check(not rpcz.recent_spans(2048, trace_id=tid),
+                  f"{label}: the ring still holds trace {tid}")
+            disk = rpcz.load_disk_spans(2048, trace_id=tid)
+            check(tree(disk) == tree(spans),
+                  f"{label}: trace {tid} from disk {tree(disk)} against "
+                  f"{tree(spans)}")
+            page = web.get(f"/rpcz?trace_id={tid}")
+            check(page.status == 200 and page.body.decode() == pages[tid],
+                  f"{label}: /rpcz?trace_id={tid}: {page.status} "
+                  f"{page.body[:300]!r}")
+            span_trees.append(len(disk))
+        # -- 4. the flight recorder, read twice during a warm pass
+        reads = []
+
+        def read_flight():
+            r = web.get("/flightrecorder?fmt=json&limit=64")
+            check(r.status == 200, f"/flightrecorder: HTTP {r.status}")
+            reads.append(json.loads(r.body))
+
+        th = threading.Thread(target=lambda: warm_pass("flight"))
+        th.start()
+        read_flight()
+        time.sleep(0.2)
+        read_flight()
+        th.join(300)
+        check(not th.is_alive(), f"{label}: the flight pass hung")
+
+        def native(snap, prefix):
+            return {t["thread"]: t["events"] for t in snap["threads"]
+                    if t["thread"].startswith(prefix) and t["live"]}
+
+        live = {}
+        for prefix in ("worker/", "epoll/"):
+            a, b = native(reads[0], prefix), native(reads[1], prefix)
+            check(a and b, f"{label}: /flightrecorder names no {prefix} "
+                           f"thread: {sorted(t['thread'] for t in reads[1]['threads'])}")
+            moved = [n for n in b if b[n] > a.get(n, b[n])]
+            check(moved, f"{label}: no {prefix} thread's events advanced "
+                         f"between two reads: {a} then {b}")
+            live[prefix] = {"threads": len(b), "advanced": len(moved)}
+        sc = reads[1]["syscalls"]
+        check(sc["read_syscalls"] > 0 and sc["write_syscalls"] > 0,
+              f"{label}: syscall counters {sc}")
+        check(reads[1]["enabled"] and reads[1]["stats"]["events"] > 0,
+              f"{label}: flight stats {reads[1]['stats']}")
+        last_events = sorted({t["last"] for t in reads[1]["threads"]
+                              if t["thread"].startswith(("worker/",
+                                                         "epoll/"))})
+        # -- 2. the replay, against a second server with the same weights
+        rpcz.set_enabled(False)
+        dst = Replica("b_replay")
+        out = io.StringIO()
+
+        def replay_all():
+            # the replayed Generates decode on after their answers: the
+            # window closes when the target's engine is idle again
+            got = rpc_replay.run_replay(f"127.0.0.1:{dst.port}", dump_dir,
+                                        timeout_ms=120_000, out=out)
+            check(dst.engine.join_idle(120), f"{label}: the replay "
+                                             f"target's engine hung")
+            return got
+
+        summary = counts.window(replay_all)
+        check(summary["replayed"] == len(records) and
+              summary["errors"] == 0, f"{label}: run_replay {summary}")
+        # every replayed Generate decoded its 32 tokens to nobody
+        st = dst.engine.stats()
+        check(st["tokens"] == toks and st["emit_cut"] == 0,
+              f"{label}: the replayed Generates streamed {st['tokens']} "
+              f"tokens, {st['emit_cut']} cut")
+        ep = str2endpoint(f"127.0.0.1:{dst.port}")
+
+        def replay_one(meta_bytes, body):
+            c = rpc_replay.replay_one(ep, meta_bytes, body,
+                                      timeout_ms=120_000)
+            c.join()
+            check(dst.engine.join_idle(120), f"{label}: the replay "
+                                             f"target's engine hung")
+            return c
+
+        score_diff, generate_answers = 0.0, []
+        rows = {tuple(p): i for i, p in enumerate(prompts)}
+        originals = {i: np.asarray(y, np.float32) for i, y in scored}
+        for (meta_bytes, body), meta in zip(records, metas):
+            c = counts.window(lambda: replay_one(meta_bytes, body))
+            check(c.error_code == 0, f"{label}: replayed "
+                                     f"{meta.service}.{meta.method}: "
+                                     f"{c.error_code} {c.error_text}")
+            if meta.method == "ScoreT":
+                req = get_serializer(meta.content_type).decode(
+                    body, meta.tensor_header)
+                i = rows[tuple(int(t) for t in np.asarray(req["x"]))]
+                y = np.asarray(c.response["y"], np.float32)
+                check(y.shape == originals[i].shape,
+                      f"{label}: replayed row {i} shape {y.shape}")
+                score_diff = max(score_diff,
+                                 float(np.abs(y - originals[i]).max()))
+                hold_rows(f"{label} replayed scoret", [(i, y)], want)
+            else:
+                # no client stream answers to the captured stream id:
+                # the call is accepted, its frames find no reader
+                generate_answers.append(c.response)
+                check(c.response.get("accepted") is True,
+                      f"{label}: replayed Generate answered {c.response}")
+        # -- 5. the cost: warm passes, everything off and on, the order
+        # alternating from pair to pair (a pair's second pass runs on a
+        # warmer host)
+        cost_dump = os.path.join(CAPTURE_DIR, "cost_dump")
+        cost = {"off": [], "on": []}
+        for i in range(CAPTURE_PAIRS):
+            for kind in ("off", "on") if i % 2 == 0 else ("on", "off"):
+                capture(kind == "on", dump_to=cost_dump)
+                cost[kind].append(toks / warm_pass(f"cost {kind} {i}"))
+        capture(False)
+        flight.set_enabled(True)
+        check(src.engine.join_idle(60), f"{label}: the engine did not go "
+                                        f"idle")
+        for r in (src, dst):
+            live_seqs = r.store.stats()["live_seqs"]
+            check(live_seqs == 0, f"{label}: {live_seqs} sequences live")
+    finally:
+        capture(False)
+        flight.set_enabled(True)
+        web.close()
+        src.close()
+        if dst is not None:
+            dst.close()
+    check(counts.paged > 0 and counts.flash > 0,
+          f"{label}: launches {counts.as_dict()}")
+    return {
+        "config": label, "card": card, "requests": N_REQUESTS,
+        "new_tokens": NEW_TOKENS, "dump_records": len(records),
+        "dumped_calls": {f"{s}.{m}": called.count((s, m))
+                         for s, m in sorted(set(called))},
+        "replay": summary, "replayed_score_max_abs_diff": score_diff,
+        "replayed_generates": len(generate_answers),
+        "replayed_generate_answers": generate_answers,
+        "span_trees_from_disk": span_trees,
+        "flight_threads": live, "flight_last_events": last_events,
+        "syscalls": sc,
+        "cost_tokens_per_s": cost,
+        "cost_on_over_off": [b / a for a, b in zip(cost["off"],
+                                                   cost["on"])],
         "wall_s": time.perf_counter() - t_phase,
         "launches": counts.as_dict(), "paged_cuda_launches": counts.paged_cuda,
     }
@@ -4129,6 +4450,31 @@ def main() -> int:
           f"{sum(v == 501 for v in r['routes'].values())} x 501; phase wall "
           f"{r['wall_s']:.1f} s; launches {r['launches']} "
           f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
+    # -- step 16: request dumps and replay, the span database, the
+    # flight recorder, (b) again
+    served_capture = serve_capture(dev, cfg_b, ctx_b, card)
+    check_rings("serve capture", rings0)
+    phase_done("serve capture")
+    r = served_capture
+    print(f"serve b capture [{card}]: rpc_dump {r['dump_records']} records "
+          f"for {json.dumps(r['dumped_calls'])}; run_replay against a "
+          f"second server {json.dumps(r['replay'])}; replayed ScoreT rows "
+          f"max abs diff {r['replayed_score_max_abs_diff']} against the "
+          f"original answers; {r['replayed_generates']} Generate records "
+          f"replayed without their client stream answered "
+          f"{json.dumps(r['replayed_generate_answers'])}; span trees from "
+          f"disk equal to the ring's, spans each "
+          f"{json.dumps(r['span_trees_from_disk'])}; flight threads "
+          f"{json.dumps(r['flight_threads'])}, their last events "
+          f"{json.dumps(r['flight_last_events'])}, syscalls "
+          f"{json.dumps(r['syscalls'])}", flush=True)
+    print(f"serve b capture cost [{card}]: {CAPTURE_PAIRS} pairs of warm "
+          f"8-stream passes, dump+span database+flight recorder off and "
+          f"on (off first in pairs 1, 3, 5), tok/s {json.dumps(r['cost_tokens_per_s'])}, on/off "
+          f"{json.dumps([round(x, 4) for x in r['cost_on_over_off']])}, "
+          f"median {pct(r['cost_on_over_off'], 50):.4f}; phase wall "
+          f"{r['wall_s']:.1f} s; launches {r['launches']} "
+          f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
     print(f"phase seconds [{card}]: {json.dumps(phase_s)}", flush=True)
     print(f"profiler windows taken again, whole script: "
           f"{BLIND_WINDOWS[0]}", flush=True)
@@ -4139,7 +4485,8 @@ def main() -> int:
         launches = sum(r["launches"][name] for r in
                        served + speculative + [served_rpc, served_control,
                                                served_host, served_replicas,
-                                               served_migration, served_http])
+                                               served_migration, served_http,
+                                               served_capture])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "max_abs_diff": err,
@@ -4169,7 +4516,8 @@ def main() -> int:
               "train_flagship": flagship, "ps_fleet": fleet,
               "trainer_wire": trainer,
               "migration_serving": served_migration,
-              "http_serving": served_http, "phase_s": phase_s,
+              "http_serving": served_http,
+              "capture_serving": served_capture, "phase_s": phase_s,
               "native_build_s": cbuild.build_seconds,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,

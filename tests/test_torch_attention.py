@@ -11,19 +11,24 @@ The CUDA kernel runs only on a card: its tests are in
 """
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from brpc_tpu.ops.attention import flash_attention as jax_flash
-from brpc_tpu.ops.attention import local_attention as jax_local
+from brpc_tpu.ops import attention as jax_attention
 from brpc_tpu_torch.ops.attention import (flash_attention,
                                           flash_attention_plain,
                                           local_attention, m_tiles_for)
 
 ATOL = 1e-5
 B, S, H, D = 2, 64, 4, 16
+# the JAX package's local attention, jitted: called eagerly, each of its
+# ops compiles again for every case's shapes (seconds a case)
+jax_local = jax.jit(jax_attention.local_attention,
+                    static_argnames=("causal", "q_offset", "kv_offset"))
 
 
 def _qkv(seed, s=S, h=H, hkv=H, d=D, b=B):

@@ -25,7 +25,6 @@ import pytest
 import torch
 
 import brpc_tpu.policy.concurrency_limiter as ref_cl
-from brpc_tpu.models import runner as R
 from brpc_tpu.serving.batcher import DynamicBatcher as RefBatcher
 import brpc_tpu_torch.policy.concurrency_limiter as cl
 import brpc_tpu_torch.rpc as rpc
@@ -37,7 +36,8 @@ from brpc_tpu_torch.policy import health_check
 from brpc_tpu_torch.serving import DynamicBatcher, register_serving
 
 from testutil import wait_until
-from test_torch_runner import JCFG, JPARAMS, TCFG, _tparams
+from test_torch_runner import (JCFG, JPARAMS, TCFG, _tparams,
+                               jax_dense_forward)
 
 CPU = "cpu"
 
@@ -618,8 +618,8 @@ def test_batcher_scores_through_runner_dense_path():
     try:
         prompt = np.array([5, 17, 42, 9], np.int32)
         got = b.submit_wait(prompt, timeout_s=120)
-        logits = R.dense_forward(JPARAMS, JCFG, jnp.asarray(prompt[None]),
-                                 jnp.arange(4, dtype=jnp.int32)[None])
+        logits = jax_dense_forward(JPARAMS, JCFG, jnp.asarray(prompt[None]),
+                                   jnp.arange(4, dtype=jnp.int32)[None])
         ref = np.asarray(jnp.argmax(logits, axis=-1))[0]
         np.testing.assert_array_equal(np.asarray(got, np.int64),
                                       ref.astype(np.int64))

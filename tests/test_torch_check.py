@@ -14,6 +14,7 @@ passes here, through their constructor arguments and a ``Repo`` whose
 Each pass also runs on a copy holding one seeded violation, so a pass
 that silently scans nothing cannot pass.
 """
+import functools
 import os
 import shutil
 
@@ -95,10 +96,17 @@ def _seeded(buf):
 }
 
 
+@functools.cache
+def _port_repo() -> PortRepo:
+    """One Repo over the port for every pass: it parses each file once
+    (the passes only read the parsed sources)."""
+    return PortRepo(ROOT)
+
+
 @pytest.mark.parametrize("pass_id", sorted(SEEDED))
 def test_port_has_no_findings(pass_id, monkeypatch):
     p = _passes(monkeypatch)[pass_id]
-    repo = PortRepo(ROOT)
+    repo = _port_repo()
     assert repo.files(("brpc_tpu",)), "the port's files were not found"
     found = p.run(repo)
     assert found == [], "\n".join(map(str, found))

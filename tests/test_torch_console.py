@@ -38,7 +38,7 @@ from brpc_tpu_torch.builtin import services
 from testutil import wait_until
 
 # the routes whose module the port has not ported: 501
-NOT_PORTED = {"/ici", "/cluster", "/fleet", "/flightrecorder",
+NOT_PORTED = {"/ici", "/cluster", "/fleet",
               "/hotspots/cpu", "/hotspots/native", "/hotspots/contention",
               "/hotspots/heap", "/hotspots/growth", "/pprof/profile",
               "/pprof/profile_native", "/pprof/contention", "/pprof/heap",
@@ -106,9 +106,9 @@ def test_vars_filter(server):
 def test_flags_list_and_set(server):
     _, body = _get(server.port, "/flags")
     assert b"rpcz_enabled" in body and b"hotspot_sampler_enabled" in body
-    # flags of modules the port has not ported are not offered
-    assert b"rpcz_database_dir" not in body
-    assert b"flight_recorder_enabled" not in body
+    # the span database's and the flight recorder's switches
+    assert b"rpcz_database_dir" in body
+    assert b"flight_recorder_enabled" in body
     status, body = _get(server.port,
                         "/flags?setvalue=rpcz_sample_rate&value=0.5")
     assert status == 200 and body == b"ok\n"

@@ -203,23 +203,25 @@ def test_engine_rejects_mismatched_store_and_device():
 
 
 def test_port_runs_without_jax_or_brpc_tpu():
-    """In a fresh interpreter: importing the port (its speculative
-    module, its RPC front, its Serving service, the batcher, the
-    supervisor, tensorframe, bvar and fault, the client policies, the
-    combo channels, the PS shards, the training plane and the PS model
-    too), serving one CPU request through a speculative
-    engine, one ``Serving.Generate`` over loopback through the port's
-    own server and channel (the engine behind an ``EngineSupervisor``
-    with an endpoint to quarantine), and one ``Serving.ScoreT`` through
-    a ``DynamicBatcher`` over the runner, called through a
-    ``prefix_affinity`` cluster channel and a ``ParallelChannel``, and
-    one Adam ``PS.UpdateT`` and ``PS.LookupT`` through a ``PSClient``,
-    one KV page migration into a ``Server(enable_dcn=True)``, and the
-    HTTP face (``builtin.services``, ``rpc.http``, ``builtin.sampler``:
+    """In a fresh interpreter: importing the port (its speculative module,
+    its RPC front, its Serving service, the batcher, the supervisor,
+    tensorframe, bvar and fault, the client policies, the combo
+    channels, the PS shards, the training plane and the PS model,
+    recordio, rpc_dump, rpc_replay and the flight recorder too), serving
+    one CPU request through a speculative engine, one
+    ``Serving.Generate`` over loopback through the port's own server and
+    channel (the engine behind an ``EngineSupervisor`` with an endpoint
+    to quarantine), and one ``Serving.ScoreT`` through a
+    ``DynamicBatcher`` over the runner, called through a
+    ``prefix_affinity`` cluster channel (captured by ``rpc_dump`` with
+    its span in the span database, and replayed) and a
+    ``ParallelChannel``, and one Adam ``PS.UpdateT`` and ``PS.LookupT``
+    through a ``PSClient``, one KV page migration into a
+    ``Server(enable_dcn=True)``, and the HTTP face
+    (``builtin.services``, ``rpc.http``, ``builtin.sampler``:
     ``/status`` and a chunked ``/serving/generate`` through the port's
-    ``HttpChannel``), leaves jax and the JAX package out of
-    sys.modules; the only native core mapped is the port's own
-    build."""
+    ``HttpChannel``), leaves jax and the JAX package out of sys.modules;
+    the only native core mapped is the port's own build."""
     code = textwrap.dedent("""
         import json, sys, threading
         import numpy as np
@@ -237,6 +239,11 @@ def test_port_runs_without_jax_or_brpc_tpu():
         import brpc_tpu_torch.builtin.sampler
         import brpc_tpu_torch.tools.parallel_http
         import brpc_tpu_torch.tools.rpc_view
+        import os, tempfile
+        from brpc_tpu_torch import flags, rpcz
+        from brpc_tpu_torch.butil import flight, recordio
+        from brpc_tpu_torch.rpc import rpc_dump
+        from brpc_tpu_torch.tools import rpc_replay
         from brpc_tpu_torch.train.trainer import DataParallelTrainer
         from brpc_tpu_torch.butil.endpoint import EndPoint
         from brpc_tpu_torch.policy import health_check
@@ -289,7 +296,26 @@ def test_port_runs_without_jax_or_brpc_tpu():
         cluster = rpc.Channel(f"list://127.0.0.1:{server.port}",
                               timeout_ms=30000,
                               load_balancer="prefix_affinity")
+        # the ScoreT call captured by rpc_dump, its span in the span
+        # database, then replayed
+        tmp = tempfile.mkdtemp()
+        flags.set_flag("rpc_dump_dir", tmp, force=True)
+        flags.set_flag("rpc_dump", True, force=True)
+        rpcz.set_enabled(True)
+        rpcz.set_database_dir(os.path.join(tmp, "spans"))
         y = ScoreClient(cluster).score([1, 2, 3])
+        flags.set_flag("rpc_dump", False, force=True)
+        rpc_dump.RpcDumper.instance().close()
+        assert len(rpc_replay.load_records(tmp)) == 1
+        summary = rpc_replay.run_replay(f"127.0.0.1:{server.port}", tmp,
+                                        timeout_ms=30000, out=sys.stdout)
+        assert summary["replayed"] == 1 and summary["errors"] == 0, summary
+        rpcz.flush()
+        assert "server" in [s.kind for s in rpcz.load_disk_spans(50)]
+        rpcz.set_database_dir(None)
+        rpcz.set_enabled(False)
+        assert flight.available() and flight.events(8)
+        assert recordio.MAGIC == b"RIO1"
         assert y.shape == (3,) and int(y[-1]) == toks[0], (y, toks)
         fan = rpc.ParallelChannel().add_channel(cluster)
         out = fan.call_sync("Serving", "Score", {"x": [1, 2, 3]},

@@ -55,6 +55,17 @@ from test_torch_runner import JCFG, JPARAMS, TCFG, _tparams
 CPU = "cpu"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _frozen_heap():
+    """Every object alive before this module's tests goes to the
+    collector's permanent generation, so each leak check's full
+    collection scans what the tests made, not the whole JAX and torch
+    heap.  A ring a test leaks is made after the freeze: still found."""
+    gc.freeze()
+    yield
+    gc.unfreeze()
+
+
 @pytest.fixture(autouse=True)
 def native_flag():
     """The flag on in both packages, restored after; no port ring
@@ -248,12 +259,24 @@ def test_engine_uses_native_ring_and_streams_bit_exact():
         srv.close()
 
 
+def _device_paced_step(t, p):
+    """The next token after a 2 ms wait that releases the interpreter
+    lock, as a device step does.  A step of no cost at all outruns any
+    Python reader: a reader's emitter thread, woken by its ring, waits
+    for the interpreter lock up to the 5 ms switch interval while such
+    a loop pushes a token every ~0.5 ms, so an 8-token ring overflows
+    and a reader that never stopped draining is cut with
+    EOVERCROWDED."""
+    time.sleep(0.002)
+    return t + 1
+
+
 def test_native_ring_wedged_consumer_cut_fast_reader_streams():
     """A consumer that stops draining its native ring is cut with
     EOVERCROWDED after its buffered tokens flush, while a fast reader
     beside it streams at full speed; the cut ring is freed."""
     base = _live()
-    srv = StepEngine(lambda t, p: t + 1, "t_tnh_wedge", emit_buffer=8)
+    srv = StepEngine(_device_paced_step, "t_tnh_wedge", emit_buffer=8)
     try:
         slow, fast = _Sink(), _Sink()
 

@@ -11,6 +11,7 @@ its tests are in ``test_torch_cuda_kernels.py``.
 """
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,12 +31,20 @@ JAX_BACKENDS = ("gather", "pallas")
 PORT_FNS = {"wrapper": paged_attention, "plain": paged_attention_plain}
 
 
+# Both JAX paths jitted (the Pallas kernel still in interpret mode):
+# called eagerly, each of their ops compiles again for every case's
+# shapes, seconds a case; jitted, one program a case.  The jitted
+# results differ from the eager ones by float rounding only, far inside
+# ATOL.
+_JAX = {"gather": jax.jit(paged_attention_gather),
+        "pallas": jax.jit(functools.partial(paged_attention_pallas,
+                                            interpret=True))}
+
+
 def _jax(backend, args, kw):
     args = [jnp.asarray(a) for a in args]
     kw = {k: jnp.asarray(v) for k, v in kw.items()}
-    if backend == "gather":
-        return np.asarray(paged_attention_gather(*args, **kw))
-    return np.asarray(paged_attention_pallas(*args, interpret=True, **kw))
+    return np.asarray(_JAX[backend](*args, **kw))
 
 
 def _port(fn, args, kw):

@@ -9,6 +9,7 @@ exact equality for greedy tokens.
 """
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,9 +32,25 @@ def _tparams():
                              device=CPU)
 
 
+# The JAX package's dense forward, jitted.  Called eagerly it compiles
+# each of its ops again for every new sequence length, seconds a length;
+# jitted, one program a length.  test_dense_forward_logits_match_jax
+# holds the jitted forward to the eager one.
+jax_dense_forward = jax.jit(R.dense_forward,
+                            static_argnames=("cfg", "use_flash"))
+
+
 @functools.cache
 def jax_oracle(prompt: tuple, n: int) -> list:
-    return R.dense_generate(JPARAMS, JCFG, list(prompt), n)
+    """``R.dense_generate`` (greedy decode with no cache, the full
+    sequence recomputed every step) over the jitted forward."""
+    out = list(prompt)
+    for _ in range(n):
+        logits = jax_dense_forward(JPARAMS, JCFG,
+                                   jnp.asarray([out], jnp.int32),
+                                   jnp.arange(len(out), dtype=jnp.int32)[None])
+        out.append(int(jnp.argmax(logits[0, -1])))
+    return out[len(prompt):]
 
 
 def test_params_from_jax_keeps_names_layout_and_values():
@@ -58,12 +75,15 @@ def test_init_runner_params_is_seeded():
 @pytest.mark.parametrize("prompt", PROMPTS)
 def test_dense_forward_logits_match_jax(prompt):
     s = len(prompt)
-    ref = np.asarray(R.dense_forward(
-        JPARAMS, JCFG, jnp.asarray([prompt], jnp.int32),
-        jnp.arange(s, dtype=jnp.int32)[None]))
+    args = (JPARAMS, JCFG, jnp.asarray([prompt], jnp.int32),
+            jnp.arange(s, dtype=jnp.int32)[None])
+    ref = np.asarray(R.dense_forward(*args))
     out = T.dense_forward(_tparams(), TCFG, torch.tensor([prompt]),
                           torch.arange(s, dtype=torch.int32)[None])
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL)
+    # the jitted forward the oracles use is the eager one
+    np.testing.assert_allclose(np.asarray(jax_dense_forward(*args)), ref,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("prompt", PROMPTS)

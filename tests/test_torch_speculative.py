@@ -21,7 +21,6 @@ import numpy as np
 import pytest
 import torch
 
-from brpc_tpu.models import runner as R
 from brpc_tpu.serving import speculative as ref_spec
 from brpc_tpu_torch import errors
 from brpc_tpu_torch.models import runner as T
@@ -31,7 +30,8 @@ from brpc_tpu_torch.serving import (DecodeEngine, DraftModelProposer,
                                     as_proposer)
 from brpc_tpu_torch.serving.speculative import top_tokens
 
-from test_torch_runner import JCFG, JPARAMS, PROMPTS, TCFG, _tparams
+from test_torch_runner import (JCFG, JPARAMS, PROMPTS, TCFG, _tparams,
+                               jax_dense_forward)
 
 CPU = "cpu"
 NEW = 12
@@ -47,8 +47,8 @@ def oracle(prompt: tuple) -> list:
 @functools.cache
 def _jax_greedy(seq: tuple) -> list:
     """The JAX package's greedy token after every position of `seq`."""
-    logits = R.dense_forward(JPARAMS, JCFG, jnp.asarray([seq], jnp.int32),
-                             jnp.arange(len(seq), dtype=jnp.int32)[None])
+    logits = jax_dense_forward(JPARAMS, JCFG, jnp.asarray([seq], jnp.int32),
+                               jnp.arange(len(seq), dtype=jnp.int32)[None])
     return np.asarray(jnp.argmax(logits[0], axis=-1)).tolist()
 
 

@@ -26,7 +26,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from brpc_tpu.models import runner as R
 from brpc_tpu.serving.ladder import OverloadLadder as RefLadder
 from brpc_tpu_torch import errors, fault
 from brpc_tpu_torch.butil.endpoint import str2endpoint
@@ -40,7 +39,8 @@ from brpc_tpu_torch.serving import (DecodeEngine, DynamicBatcher,
 from brpc_tpu_torch.serving.ladder import (OverloadLadder,
                                            apply_level_to_components)
 
-from test_torch_runner import JCFG, JPARAMS, TCFG, _tparams
+from test_torch_runner import (JCFG, JPARAMS, TCFG, _tparams,
+                               jax_dense_forward)
 from testutil import wait_until
 
 CPU = "cpu"
@@ -64,7 +64,7 @@ def _no_fault_plan():
 
 @functools.cache
 def _jax_greedy(seqs: tuple) -> list:
-    logits = R.dense_forward(
+    logits = jax_dense_forward(
         JPARAMS, JCFG, jnp.asarray(seqs, jnp.int32),
         jnp.tile(jnp.arange(len(seqs[0]), dtype=jnp.int32)[None],
                  (len(seqs), 1)))
