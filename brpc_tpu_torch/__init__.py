@@ -28,8 +28,10 @@ point runs on ``cuda`` unless the caller passes ``device="cpu"``
 goes to the hand-written kernel, a CPU tensor to its plain version.
 Importing this package builds nothing: the kernels compile with
 ``nvcc`` at their first launch (``ops/_build.py``), the native core
-with ``g++`` at the first server or channel (``_core/build.py``).
+with ``g++`` at the first server or channel (``_core/build.py``).  Nor
+does it import ``torch`` (seconds on a CUDA machine): the host-only
+layers -- the RPC front, the router tier, bvar -- load without it, so a
+router process starts in a fraction of a second.
 """
-from .device import resolve_device  # noqa: F401
 
 __version__ = "0.1.0"   # the JAX package's version: one wire, one console

@@ -21,7 +21,7 @@ the merged event tail and the syscall counters; ``?limit=N``,
 
 The pages whose module the port has not ported yet answer 501 and name
 the ROADMAP item that brings them: ``/ici`` (Queue 1 item 8),
-``/cluster`` and ``/fleet`` (item 7), the on-demand profilers
+``/fleet`` (item 7, second half), the on-demand profilers
 ``/hotspots/{cpu,native,contention,heap,growth}`` and ``/pprof/*``
 (``builtin/profiler.py``).  A page whose data source raises answers 500
 with the traceback (the router's rule).
@@ -195,7 +195,7 @@ def build_routes(server) -> dict:
         if tid:
             # the timeline of ONE trace, tree-ordered with relative
             # offsets; the span database when the in-memory store lost
-            # it (the fleet's cross-process stitching waits for item 7)
+            # it (the fleet's cross-process stitching waits for item 7, second half)
             spans = rpcz.recent_spans(2048, int(tid))
             if not spans:
                 spans = rpcz.load_disk_spans(2048, int(tid))
@@ -227,7 +227,7 @@ def build_routes(server) -> dict:
         # Prometheus text: LatencyRecorders as quantile-labelled summary
         # families, Adders as counters, the rest as gauges, every family
         # with a # HELP line; MultiDimension variables with their label
-        # names.  (The fleet families wait for item 7.)
+        # names.  (The fleet families wait for item 7, second half.)
         from ..bvar.multi_dimension import MultiDimension
         from ..bvar.recorder import IntRecorder, LatencyRecorder
         from ..bvar.reducer import Adder, PassiveStatus
@@ -358,6 +358,18 @@ def build_routes(server) -> dict:
         snap = kvcache_snapshot()
         if not snap["stores"]:
             return "no kv-cache stores registered\n"
+        return json.dumps(snap, indent=1), "application/json"
+
+    def cluster_page(req):
+        # per router: the replica table (health, breaker isolations,
+        # quarantine, ladder level), session counts and resume stats,
+        # the overload gradient's per-level fire counters
+        if f"{_PKG}.serving" not in sys.modules:
+            return "no cluster routers registered\n"
+        from ..serving import cluster_snapshot
+        snap = cluster_snapshot()
+        if not snap["routers"]:
+            return "no cluster routers registered\n"
         return json.dumps(snap, indent=1), "application/json"
 
     def psserve_page(req):
@@ -580,8 +592,8 @@ def build_routes(server) -> dict:
                 + "flip recording live: /flags?setvalue="
                 + "flight_recorder_enabled&value=false\n")
 
-    item7 = _not_ported("ROADMAP Queue 1 item 7 (the cluster front door "
-                        "and the fleet)")
+    fleet = _not_ported("ROADMAP Queue 1 item 7, second half (the fleet "
+                        "pages)")
     profiler = _not_ported("builtin/profiler.py (ROADMAP Queue 1 item 6)")
     routes = {
         "/": index, "/index": index,
@@ -604,8 +616,8 @@ def build_routes(server) -> dict:
         "/serving/generations": serving_generations_page,
         "/kvcache": kvcache_page,
         "/migration": migration_page,
-        "/cluster": item7,
-        "/fleet": item7,
+        "/cluster": cluster_page,
+        "/fleet": fleet,
         "/psserve": psserve_page,
         "/flightrecorder": flightrecorder_page,
         "/hotspots": hotspots_index,

@@ -7,10 +7,17 @@ call into the port's own core (``libbrpc_core_torch.so``,
 cells -- count, sum, max and a log-bucket histogram -- and reads merge
 the cells natively.  The core is built and loaded at the first
 recorder (``_core/lib.py``); a failed build raises.
+
+The core has 512 recorder slots a process, and a recorder made once they
+are all live gets one that silently records nothing (the reference's
+recorders then read 0).  The port counts the live slots and raises
+instead, after a garbage collection has given back what it can.
 """
 from __future__ import annotations
 
 import ctypes
+import gc
+import threading
 
 from .._core import lib as _lib
 from .reducer import Adder, PassiveStatus
@@ -37,6 +44,38 @@ class IntRecorder(Variable):
     def get_value(self):
         c = self._count.get_value()
         return self._sum.get_value() / c if c else 0
+
+
+# the core's recorder slots (kMaxLatencyRecs, src/cc/bvar/combiner.h)
+NATIVE_SLOTS = 512
+_slots_mu = threading.Lock()
+_slots_live = 0
+
+
+def native_slots_live() -> int:
+    """Native recorder slots held by live recorders."""
+    return _slots_live
+
+
+def _take_slot() -> None:
+    """Count one more live slot; raise when every slot is live, once
+    unreachable recorders have been collected."""
+    global _slots_live
+    for attempt in range(2):
+        with _slots_mu:
+            if _slots_live < NATIVE_SLOTS:
+                _slots_live += 1
+                return
+        if attempt == 0:
+            gc.collect()
+    raise RuntimeError(f"all {NATIVE_SLOTS} native latency recorder "
+                       f"slots are live")
+
+
+def _give_slot() -> None:
+    global _slots_live
+    with _slots_mu:
+        _slots_live -= 1
 
 
 def _native_stats(stats_fn, handle) -> tuple:
@@ -67,8 +106,10 @@ class LatencyRecorder(Variable):
 
     def __init__(self, name: str = "", window_size: int = 10):
         core, _ = _lib.load()
+        _take_slot()
         self._h = core.brpc_latency_new()
         if not self._h:
+            _give_slot()
             raise RuntimeError("the native core has no free latency "
                                "recorder slot")
         self._record = core.brpc_latency_record
@@ -134,3 +175,4 @@ class LatencyRecorder(Variable):
             except Exception:
                 pass
             self._h = None
+            _give_slot()

@@ -56,6 +56,23 @@ Named injection sites in the port's RPC and serving code:
     migrate.prefix_fetch error  (migrate/plane.py: a pull-based prefix
                        fetch fails before its PushTo; the caller
                        recomputes)
+    router.admit       error  (serving/router.py: a session admission
+                       fails definitively, before anything is forwarded)
+    router.forward     error  (serving/router.py: a forward attempt to a
+                       replica fails; the session re-routes)
+    router.resume      error  (serving/router.py: a client (re)attach
+                       fails; a Generate whose attach fails cancels its
+                       session)
+    router.model_route error  (serving/router.py: the pick is treated as
+                       a wrong-model route; counted and re-routed)
+    router.wal_append  error  (serving/session_wal.py: an append fails;
+                       the record parks on the pending tail and heals
+                       with the next append)
+    cluster.floor_push drop  (serving/router.py: a floor push to a remote
+                       replica is lost on the wire; the next tick
+                       re-pushes)
+    cluster.deploy     error  (serving/cluster_control.py: a deploy,
+                       undeploy or drain push is refused)
 
 Disabled (the default), a site costs one module-attribute check,
 ``if fault.ENABLED:``.  Enabled, ``hit(site)`` consults the installed
@@ -107,6 +124,13 @@ MIGRATE_SEND = "dcn.migrate_send"
 MIGRATE_RECV = "dcn.migrate_recv"
 MIGRATE_SPLICE = "migrate.splice"
 PREFIX_FETCH = "migrate.prefix_fetch"
+ROUTER_ADMIT = "router.admit"
+ROUTER_FORWARD = "router.forward"
+ROUTER_RESUME = "router.resume"
+ROUTER_MODEL_ROUTE = "router.model_route"
+ROUTER_WAL_APPEND = "router.wal_append"
+CLUSTER_FLOOR_PUSH = "cluster.floor_push"
+CLUSTER_DEPLOY = "cluster.deploy"
 
 REFUSE = "refuse"        # connect: raise ConnectionError
 RESET = "reset"          # send: fail the socket mid-call (ECONNRESET)

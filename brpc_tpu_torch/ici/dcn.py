@@ -246,12 +246,13 @@ class DcnChannel:
 
     def __init__(self, address: str, timeout_ms: int = 10_000,
                  default_chip: Optional[int] = None, device=None):
-        from ..rpc.channel import Channel
+        from ..rpc.channel import control_channel
         host, port, chip = parse_dcn_address(address)
         self.remote = f"{host}:{port}"
         self.default_chip = chip if chip is not None else default_chip
         self.device = device
-        self._ch = Channel(self.remote, timeout_ms=timeout_ms)
+        # its calls carry pages (tens of ms a prompt at the wide model)
+        self._ch = control_channel(self.remote, timeout_ms)
         self.topology: Optional[dict] = None
 
     @property

@@ -133,6 +133,19 @@ class RadixTree:
         with self._mu:
             return self._nodes
 
+    def evictable_pages(self) -> int:
+        """Tree-only pages (``refs == 1``): all of them can be evicted,
+        leaves first, since a live sequence that holds a page also
+        holds every page above it."""
+        with self._mu:
+            n, stack = 0, [self._root]
+            while stack:
+                node = stack.pop()
+                for c in node.children.values():
+                    n += c.page.refs == 1
+                    stack.append(c)
+            return n
+
     def cached_tokens(self) -> int:
         with self._mu:
             return self._nodes * self.page_tokens

@@ -28,6 +28,12 @@ through :meth:`KVCacheStore.write_kv`.  The lifecycle the engine drives:
                     nothing), and a committed prefix's full pages pinned
                     for export.
 
+Harness mode (``vector_kv=False``, the reference's token harness): no
+model writes K/V; each appended token id IS its slot's payload (written
+by ``PagePool.write``), so a slot is materialised as soon as it is
+appended.  A step-function runner (``models.runner.LegacyFnRunner``)
+serves over such a store.
+
 Streaming commit (``commit_live_pages=True``): every page a live
 sequence fills with real K/V (``kv_filled`` passes its end) joins the
 radix tree at once instead of at retire, so a standby's page shipper can
@@ -148,7 +154,8 @@ class KVCacheStore:
 
     def __init__(self, pool=None, device=None, *, page_bytes: int = 1024,
                  page_tokens: int = 16, max_blocks: int = 8,
-                 commit_live_pages: bool = False, name: str = "kv"):
+                 commit_live_pages: bool = False, vector_kv: bool = True,
+                 name: str = "kv"):
         self.pagepool = PagePool(pool, device, page_bytes=page_bytes,
                                  page_tokens=page_tokens,
                                  max_blocks=max_blocks, name=name)
@@ -156,6 +163,7 @@ class KVCacheStore:
         self.radix = RadixTree(self.pagepool, name=name)
         self.page_tokens = self.pagepool.page_tokens
         self.commit_live_pages = bool(commit_live_pages)
+        self.vector_kv = bool(vector_kv)
         self.name = name
         self._mu = InstrumentedLock("kvcache.store", threading.RLock())
         self._live = 0
@@ -324,7 +332,7 @@ class KVCacheStore:
         with self._mu:
             if seq.retired:
                 raise RuntimeError(f"speculate on retired seq {seq.seq_id}")
-            self._append_run(seq, tokens)
+            self._append_run(seq, tokens, materialize=False)
             self._speculated.add(len(tokens))
 
     def rollback(self, seq: KVSeq, keep_tokens: int) -> int:
@@ -532,10 +540,13 @@ class KVCacheStore:
         self._cow.add(1)
         return fresh
 
-    def _append_run(self, seq: KVSeq, tokens: Sequence[int]) -> None:
+    def _append_run(self, seq: KVSeq, tokens: Sequence[int], *,
+                    materialize: bool = True) -> None:
         """Append tokens page by page: a fresh page at each boundary, a
         copy of a shared tail before the first write into it.  The K/V
-        bytes come later, from write_kv."""
+        bytes come later, from write_kv; in harness mode the token ids
+        are written now and, unless this is a draft
+        (``materialize=False``), the run counts as materialised."""
         idx, n = 0, len(tokens)
         while idx < n:
             slot = len(seq.tokens) % self.page_tokens
@@ -544,8 +555,14 @@ class KVCacheStore:
             elif seq.pages[-1].refs > 1:
                 self._copy_on_write(seq, len(seq.pages) - 1, "write")
             k = min(self.page_tokens - slot, n - idx)
-            seq.tokens.extend(int(t) for t in tokens[idx:idx + k])
+            run = [int(t) for t in tokens[idx:idx + k]]
+            if not self.vector_kv:
+                self.pagepool.write(seq.pages[-1], slot, run)
+            seq.tokens.extend(run)
             idx += k
+        if materialize and not self.vector_kv:
+            seq.kv_filled = len(seq.tokens)
+            self._commit_live(seq)
 
     def _alloc_page(self, span=None) -> KVPage:
         """Allocate a page, evicting one block's worth of LRU radix
@@ -611,6 +628,17 @@ class KVCacheStore:
             self._evictions.add(freed)
         return freed
 
+    def pool_ratio(self) -> float:
+        """Pool pressure: the share of the pool's capacity that live
+        sequences hold.  Tree-only cached pages are left out, because
+        an allocation evicts them on demand.  (The JAX package counts
+        every page in use, so a warm cache alone reads as pressure.)"""
+        with self._mu:
+            pinned = (self.pagepool.pages_in_use()
+                      - self.radix.evictable_pages())
+        cap = self.pagepool.max_blocks * self.pagepool.pages_per_block
+        return max(0, pinned) / cap if cap else 0.0
+
     def clear(self) -> int:
         """Evict every cached (tree-only) page; once every sequence has
         retired this returns the block pool to its baseline."""
@@ -636,6 +664,7 @@ class KVCacheStore:
         with self._mu:
             return {
                 "page_tokens": self.page_tokens,
+                "vector_kv": self.vector_kv,
                 "live_seqs": self._live,
                 "hit_rate": self.hit_rate(),
                 "hit_tokens": self.hit_tokens,

@@ -26,8 +26,8 @@ decode-side admission misses, prefills the suffix itself, and the
 generation completes bit-exact.
 
 The reference's ``batcher=`` prefill path serves its token-id stand-in
-stores; the port's store holds real K/V only, so ``batcher=`` without
-``runner=`` raises (ROADMAP Queue 1 item 7 brings the stand-in mode).
+stores; here ``batcher=`` without ``runner=`` raises (ROADMAP Queue 1
+item 7, second half, brings that path).
 
 FAILOVER.  :class:`StandbySync` wraps an engine-shaped ``submit`` (a
 ``DecodeEngine`` or an ``EngineSupervisor``) and write-ahead-streams to
@@ -86,9 +86,8 @@ class PrefillReplica:
         if runner is None:
             raise ValueError(
                 "PrefillReplica needs runner= (a TransformerRunner on the "
-                "store): the batcher= prefill path serves token-id "
-                "stand-in stores, which the port does not have yet "
-                "(ROADMAP Queue 1 item 7)")
+                "store): the batcher= prefill path is not ported yet "
+                "(ROADMAP Queue 1 item 7, second half)")
         self.store = store
         self.decode_addr = decode_addr
         self.runner = runner

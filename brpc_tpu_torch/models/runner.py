@@ -1,7 +1,8 @@
 """TransformerRunner: a real transformer served over the paged KV cache.
 
-Port of ``brpc_tpu/models/runner.py`` (the runner interface, the model,
-its dense oracle and the standalone prefill helper).  The model is the reference's:
+Port of ``brpc_tpu/models/runner.py`` (the runner interface, the
+step-function adapter ``LegacyFnRunner``, the model, its dense oracle
+and the standalone prefill helper).  The model is the reference's:
 GQA attention and a tanh-gelu MLP, RMS norm with eps 1e-6 inside the
 sqrt and no gain, a sin-then-cos position encoding, tied embeddings,
 greedy decode taking the first index on an argmax tie.  Parameters are
@@ -86,6 +87,62 @@ class ModelRunner:
 
     def close(self) -> None:
         pass
+
+
+class LegacyFnRunner(ModelRunner):
+    """Adapter for the step-function protocols: a 2-arg
+    ``step_fn(tokens, positions)`` or 3-arg ``step_fn(tokens, positions,
+    pages)`` plus an optional ``prefill_fn(padded_suffix, prefill_from)``.
+    The functions get numpy int32 arrays (the reference hands them jnp
+    arrays; every step function in the repo calls ``np.asarray``) and
+    write no K/V: the engine serves them over a harness-mode store
+    (``KVCacheStore(vector_kv=False)``), whose pages hold the token ids.
+    The page table goes only to a step function with three REQUIRED
+    positional parameters (an optional third like ``rng=None`` must not
+    silently receive it); ``pass_page_table`` overrides for ``*args``
+    step functions."""
+
+    def __init__(self, step_fn, prefill_fn=None, *, store=None,
+                 pass_page_table=None, name: str = "legacy"):
+        self.step_fn = step_fn
+        self.prefill_fn = prefill_fn
+        self.has_prefill = prefill_fn is not None
+        self.name = name
+        if pass_page_table is not None:
+            self.wants_pages = bool(pass_page_table)
+        else:
+            from ..serving.batcher import required_positional_args
+            self.wants_pages = (store is not None and
+                                required_positional_args(step_fn) >= 3)
+
+    def prefill(self, tokens, positions, pages, seq=None):
+        if self.prefill_fn is not None:
+            self.prefill_fn(np.asarray(tokens, np.int32),
+                            np.int32(int(positions[0])))
+
+    def step(self, tokens, positions, pages):
+        tokens = np.asarray(tokens, np.int32)
+        positions = np.asarray(positions, np.int32)
+        if pages is not None:
+            out = self.step_fn(tokens, positions, np.asarray(pages, np.int32))
+        else:
+            out = self.step_fn(tokens, positions)
+        return np.asarray(out, np.int32), None
+
+
+def as_runner(step_fn=None, prefill_fn=None, *, runner=None, store=None,
+              pass_page_table=None) -> ModelRunner:
+    """The engine's construction shim: ``runner`` as it is, or the step
+    functions wrapped in a :class:`LegacyFnRunner`."""
+    if runner is not None:
+        if step_fn is not None or prefill_fn is not None:
+            raise ValueError("pass either runner= or step_fn/prefill_fn,"
+                             " not both")
+        return runner
+    if step_fn is None:
+        raise ValueError("a step_fn or a runner is required")
+    return LegacyFnRunner(step_fn, prefill_fn, store=store,
+                          pass_page_table=pass_page_table)
 
 
 @dataclass(frozen=True)

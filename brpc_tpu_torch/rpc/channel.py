@@ -56,6 +56,11 @@ class ChannelOptions:
     # availability floor for circuit breaking (ClusterRecoverPolicy);
     # None = isolate freely (single-server channels have no cluster)
     cluster_recover_policy: Optional[Any] = None
+    # feed each call's end to the global circuit breaker; off for a
+    # control plane sharing a serving endpoint, whose slow calls (a
+    # snapshot pull, a page push) would read as the endpoint's latency
+    # degrading and isolate it from its data plane
+    enable_circuit_breaker: bool = True
 
 
 class RetryPolicy:
@@ -501,6 +506,8 @@ class Channel:
         # the circuit breaker; the cluster guard lets the
         # ClusterRecoverPolicy veto an isolation that would leave too
         # few healthy servers
+        if not self.options.enable_circuit_breaker:
+            return
         from ..policy.circuit_breaker import global_breaker
         breaker = global_breaker()
         guard = self._cluster_guard()
@@ -713,3 +720,13 @@ class Channel:
         if not cntl.claim_backup():
             return
         self._issue(st)
+
+
+def control_channel(address: str, timeout_ms: int) -> Channel:
+    """A channel for a control or page plane that shares its endpoint
+    with a data plane: floor pushes, deploys, telemetry pulls, page
+    pushes, DCN handshakes.  Its calls feed no circuit breaker: their
+    latency says nothing of the endpoint's request path, and a slow one
+    would isolate the endpoint from the data plane routed to it."""
+    return Channel(address, timeout_ms=timeout_ms,
+                   enable_circuit_breaker=False)

@@ -317,6 +317,10 @@ class StreamRegistry:
         with self._mu:
             self._streams.pop(stream_id, None)
 
+    def count(self) -> int:
+        with self._mu:
+            return len(self._streams)
+
     def on_socket_failed(self, sid: int) -> None:
         """The bound connection died: every stream riding it closes now,
         so its handler learns at socket speed (a dead peer sends no

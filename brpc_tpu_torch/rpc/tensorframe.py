@@ -34,11 +34,10 @@ caller's decision.  Decoding gives numpy views.
 from __future__ import annotations
 
 import struct
+import sys
 from typing import Any, Union
 
 import numpy as np
-
-import torch
 
 from ..bvar import Adder
 
@@ -90,6 +89,16 @@ def _tensor_code(a: np.ndarray) -> int:
     return code
 
 
+def _is_tensor(v) -> bool:
+    """A numpy array or a torch tensor.  A tensor can only come from a
+    caller that imported torch, so a process that never does (a router)
+    encodes frames without loading it."""
+    if isinstance(v, np.ndarray):
+        return True
+    torch = sys.modules.get("torch")
+    return torch is not None and isinstance(v, torch.Tensor)
+
+
 def _as_host_array(name, v) -> np.ndarray:
     if isinstance(v, np.ndarray):
         return v
@@ -136,7 +145,7 @@ def encode_frame(fields: dict) -> bytes:
                 raise ValueError(f"bytes field {name!r} exceeds inline cap")
             hdr.append(struct.pack("<BI", KIND_BYTES, len(b)))
             hdr.append(b)
-        elif isinstance(v, (np.ndarray, torch.Tensor)):
+        elif _is_tensor(v):
             v = _as_host_array(name, v)
             code = _tensor_code(v)
             if v.ndim > MAX_NDIM:

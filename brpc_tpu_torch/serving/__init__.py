@@ -1,11 +1,14 @@
 """Serving: the continuous-batching decode engine, its draft proposers
 for speculative decoding, the dynamic batcher, the engine supervisor,
-and the ``Serving`` RPC service in front of them.
+the ``Serving`` RPC service in front of them, and the cluster front
+door (the router, its session WAL, the ``_cluster`` and ``_telemetry``
+services, the model plane).
 
-Every live batcher, engine and supervisor registers here, weakly and by
-name (as in ``brpc_tpu/serving/__init__.py``), so the ``/serving``
-console page (``serving_snapshot``) lists them without keeping a closed
-component alive.  Every retired decode
+Every live batcher, engine, supervisor and router registers here,
+weakly and by name (as in ``brpc_tpu/serving/__init__.py``), so the
+``/serving`` and ``/cluster`` console pages (``serving_snapshot``,
+``cluster_snapshot``) list them without keeping a closed component
+alive.  Every retired decode
 attempt (engine) and every finished supervised generation (supervisor)
 appends a summary record -- trace id, TTFT, inter-token gaps, prefix
 hit, restarts -- to a bounded ring here; ``generations_snapshot`` rolls
@@ -25,6 +28,8 @@ _engines: "weakref.WeakValueDictionary[str, object]" = \
     weakref.WeakValueDictionary()
 _supervisors: "weakref.WeakValueDictionary[str, object]" = \
     weakref.WeakValueDictionary()
+_routers: "weakref.WeakValueDictionary[str, object]" = \
+    weakref.WeakValueDictionary()
 
 
 def _register_batcher(b) -> None:
@@ -40,6 +45,22 @@ def _register_engine(e) -> None:
 def _register_supervisor(s) -> None:
     with _reg_mu:
         _supervisors[s.name] = s
+
+
+def _register_router(r) -> None:
+    with _reg_mu:
+        _routers[r.name] = r
+
+
+def cluster_snapshot() -> dict:
+    """Live routers' stats: the ``/cluster`` console page's data (per
+    router the replica table, session counts, resume stats, the
+    gradient's per-level fire counters)."""
+    with _reg_mu:
+        routers = dict(_routers)
+    return {
+        "routers": {name: r.stats() for name, r in sorted(routers.items())},
+    }
 
 
 def serving_snapshot() -> dict:
@@ -119,10 +140,39 @@ def generations_snapshot(limit: int = 50) -> dict:
     }
 
 
-from .batcher import DynamicBatcher  # noqa: E402,F401
-from .engine import DecodeEngine  # noqa: E402,F401
-from .service import (ScoreClient, ServingService,  # noqa: E402,F401
-                      http_generate_handler, register_serving)
-from .speculative import (DraftModelProposer, DraftProposer,  # noqa: E402,F401
-                          NGramProposer, as_proposer)
-from .supervisor import EngineSupervisor  # noqa: E402,F401
+# the engine, batcher, service, proposers and supervisor import torch;
+# they load at first use, so the router tier (host code) starts without
+_LAZY = {
+    "DynamicBatcher": ".batcher", "DecodeEngine": ".engine",
+    "ScoreClient": ".service", "ServingService": ".service",
+    "http_generate_handler": ".service", "register_serving": ".service",
+    "DraftModelProposer": ".speculative", "DraftProposer": ".speculative",
+    "NGramProposer": ".speculative", "as_proposer": ".speculative",
+    "EngineSupervisor": ".supervisor",
+}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    return getattr(importlib.import_module(mod, __name__), name)
+
+
+from .ladder import OverloadLadder  # noqa: E402,F401
+from .router import (ClusterRouter, ReplicaHandle,  # noqa: E402,F401
+                     RouterClient, RouterService, SessionTable,
+                     register_router)
+from .session_wal import SessionWAL  # noqa: E402,F401
+from .cluster_control import (CLUSTER_SERVICE,  # noqa: E402,F401
+                              ClusterControlService,
+                              register_cluster_control)
+from .modelplane import (DEFAULT_MODEL, CanarySplit,  # noqa: E402,F401
+                         ModelCatalog, ModelMetrics, ReplicaDeployments,
+                         cluster_deploy, deployment_key,
+                         model_fingerprint, split_deployment_key)
+from .telemetry import (TELEMETRY_SERVICE,  # noqa: E402,F401
+                        FleetCollector, TelemetryService,
+                        register_telemetry, telemetry_snapshot)

@@ -62,8 +62,14 @@ token streams to its caller per step.
     ``engine.commit`` and ``serving.emit_buf``; the engine's counters
     as ``serving_<name>_*`` bvars.
 
-Not in this port yet (see ROADMAP.md): the legacy step-function adapter
-(and with it the raw-block mode).
+  * step functions (``DecodeEngine(step_fn, prefill_fn=...)``): the
+    reference's token-harness protocols, wrapped in a
+    ``models.runner.LegacyFnRunner``.  They write no K/V, so their store
+    runs in harness mode (``KVCacheStore(vector_kv=False)``: the token
+    ids are the page payload), and they take no draft proposer.
+
+Not in this port yet (see ROADMAP.md): the raw-block mode (no store,
+``kv_bytes_per_slot``).
 """
 from __future__ import annotations
 
@@ -289,7 +295,9 @@ class DecodeEngine:
     docstring).  ``runner`` and ``store`` must live on ``device``
     (default ``cuda``)."""
 
-    def __init__(self, *, runner, store, num_slots: int = 8,
+    def __init__(self, step_fn: Optional[Callable] = None, *,
+                 runner=None, store=None, prefill_fn: Optional[Callable] = None,
+                 pass_page_table: Optional[bool] = None, num_slots: int = 8,
                  max_pages_per_slot: int = 64,
                  prefill_buckets: Sequence[int] = (16, 64, 256, 1024, 4096),
                  eos_token: Optional[int] = None, emit_buffer: int = 256,
@@ -304,12 +312,21 @@ class DecodeEngine:
         if store is None or store.device != self.device:
             raise ValueError(f"the engine on {self.device} needs a KV store "
                              f"on the same device")
+        from ..models.runner import as_runner
+        runner = as_runner(step_fn, prefill_fn, runner=runner, store=store,
+                           pass_page_table=pass_page_table)
         if getattr(runner, "device", self.device) != self.device:
             raise ValueError(f"runner lives on {runner.device}, engine on "
                              f"{self.device}")
-        if runner.kv_bytes_per_token <= 0 or not runner.wants_pages:
-            raise ValueError("the runner must write packed K/V rows over "
-                             "page tables (a vector-KV ModelRunner)")
+        if runner.kv_bytes_per_token > 0:
+            if not runner.wants_pages or not store.vector_kv:
+                raise ValueError("a vector-KV runner writes packed K/V rows "
+                                 "over page tables into a vector-KV store")
+        elif store.vector_kv:
+            raise ValueError("a runner that writes no K/V (a step function) "
+                             "needs a harness-mode store (vector_kv=False)")
+        elif draft_runner is not None:
+            raise ValueError("speculative decoding needs a vector-KV runner")
         # speculative decoding: a draft proposer turns the step into
         # propose -> verify -> commit; without one the plain step runs
         self._draft = as_proposer(draft_runner)
@@ -625,7 +642,9 @@ class DecodeEngine:
         row[:len(ids)] = ids
         return row
 
-    def _gather_page_tables(self, active) -> np.ndarray:
+    def _gather_page_tables(self, active) -> Optional[np.ndarray]:
+        if not self.runner.wants_pages:
+            return None
         if native_path.enabled():
             # one native fill (the interpreter lock released); the row
             # arrays stay referenced until it returns
@@ -781,7 +800,8 @@ class DecodeEngine:
         takeover stolen all)."""
         t_tok = time.monotonic()
         items = [(i, s) for i, s in active if self._slots[i] is s]
-        fails = self.store.write_kv_batch(
+        # a step function writes no K/V: its tokens are the payload
+        fails = [] if kv_rows is None else self.store.write_kv_batch(
             [(s.seq, s.position - 1, kv_rows[i:i + 1]) for i, s in items])
         bad = set()
         for wi, e in fails:

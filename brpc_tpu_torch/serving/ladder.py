@@ -72,6 +72,11 @@ class OverloadLadder:
             self._calm_ticks = 0
         return self.level
 
+    def reset(self) -> None:
+        self.level = 0
+        self.floor = 0
+        self._calm_ticks = 0
+
     def stats(self) -> dict:
         return {
             "level": self.level,

@@ -33,8 +33,8 @@ A copy of ``brpc_tpu/serving/service.py``'s ``Serving`` service and
     response of JSON lines, ``{"token": t}`` per token, then
     ``{"done": true}`` (with ``"error"`` when the generation failed).
 
-Left out (ROADMAP): the multi-model ``deployments`` table (model plane,
-item 7).
+Left out (ROADMAP): the multi-model ``deployments`` table (item 7,
+second half).
 """
 from __future__ import annotations
 

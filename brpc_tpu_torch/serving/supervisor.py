@@ -604,9 +604,7 @@ class EngineSupervisor:
         pool = 0.0
         if self.store is not None:
             try:
-                st = self.store.pagepool.stats()
-                cap = st["max_blocks"] * st["pages_per_block"]
-                pool = st["pages_in_use"] / cap if cap else 0.0
+                pool = self.store.pool_ratio()
             except Exception:
                 pool = 0.0
         depth = 0.0

@@ -13,7 +13,7 @@
 
 The reference's ``arbiter.py`` (``TrafficArbiter``,
 ``MixedWorkloadHarness``) imports the fleet telemetry plane and is
-ROADMAP Queue 1 item 7.  ``trainer`` imports lazily (PEP 562) so the
+ROADMAP Queue 1 item 7, second half.  ``trainer`` imports lazily (PEP 562) so the
 wire layers can import :class:`OptimizerSpec` alone.
 """
 from __future__ import annotations
@@ -31,5 +31,5 @@ def __getattr__(name: str):
         return DataParallelTrainer
     if name in _NOT_PORTED:
         raise AttributeError(f"{name} (train/arbiter.py) is not ported "
-                             f"yet: ROADMAP Queue 1 item 7")
+                             f"yet: ROADMAP Queue 1 item 7, second half")
     raise AttributeError(name)

@@ -86,7 +86,7 @@ class DataParallelTrainer:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         if arbiter is not None:
             raise ValueError("arbiter= (TrafficArbiter) is not ported yet:"
-                             " ROADMAP Queue 1 item 7")
+                             " ROADMAP Queue 1 item 7, second half")
         self.device = resolve_device(device)
         self.client = client
         self.cfg = cfg or PSConfig(

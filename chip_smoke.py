@@ -33,9 +33,10 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      requests through ``DecodeEngine``, every stream equal to the port's
      ``dense_generate`` on the card, the same prompts again warm (prefix
      hit > 0, identical tokens), the page pool back at its baseline, and
-     both kernels launched on the way (launch counts reset just before
-     each serving run and read just after); then one more warm pass
-     under ``torch.profiler`` for the device's busy share;
+     the paged kernel launched on the way (launch counts reset just
+     before each serving run and read just after it, before the oracle:
+     the engine runs no dense forward); then one more warm pass under
+     ``torch.profiler`` for the device's busy share;
   5. speculative serving phase: the wide configuration's prompts and
      dense oracle again through a speculative ``DecodeEngine``
      (draft_len 4), once with ``NGramProposer`` and once with a width-2
@@ -264,6 +265,39 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      client stream, is accepted and decodes to its end.  Then 5 pairs
      of warm 8-stream passes with all three off and on, the order
      alternating (tokens/s, on/off median; printed, not gated);
+
+ 17. the cluster front door, the wide configuration with step 4's
+     weights, prompts and oracle: two replicas in this process (each a
+     store with live page commits, a ``TransformerRunner``, an engine
+     of 8 slots and a ``Server`` with ``Serving``, ``_kvmig``,
+     ``_cluster`` and ``_telemetry``) behind a ``ClusterRouter``
+     (``replicate_sessions``, a session WAL in a temporary directory,
+     address-only replicas: floors ride ``_cluster``) on its own
+     ``Server``, clients ``RouterClient``s.  8 concurrent 32-token
+     sessions cold and warm, every stream the oracle's and each
+     repeated prefix on its first replica; 2 alternating warm pairs
+     through the router and straight to one replica (tokens/s, TTFT
+     p50) and one router pass with the fleet-telemetry pulls off; the
+     gradient forced to level 3: both replicas' floors and
+     engine clamps follow over ``_cluster``, a new session gets ELIMIT
+     with ``retry_after_s``, and all clears; a replica killed after 8
+     tokens (``server.stop()``, ``engine.close()``) while the client
+     drops: the session resumes on the other replica, the client's
+     reconnect from its cursor completes the dense oracle's stream
+     (computed before, outside the counted windows) with
+     ``re_decoded_tokens`` below the total;
+     then the router as its own process (``router_proc.spawn_router``)
+     in front of the survivor and a fresh replica, 4 sessions,
+     ``SIGKILL`` after 8 tokens each, a successor over the same WAL at
+     a higher epoch adopts them and each client resumes exactly once
+     from its cursor.  Both routers keep the default overload ladder,
+     whose pool pressure counts the pages live sequences hold (a warm
+     cache is not pressure).  Every pool back at its baseline, no
+     stream or emit ring leaked.  The routed path runs K1 only: every
+     replica's prefill, decode and resume; Generate reaches no dense
+     forward.  Prints tokens/s and TTFT against direct, the kill ->
+     first resumed token stall, the router restart's, and the buddy
+     pushes and their pages;
 
 and prints ``{"kernels": [...]}`` (K1 and K2: the PS and training
 phases run torch ops only), the card line, and as the LAST line
@@ -781,12 +815,13 @@ def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
         hit = store.hit_tokens - hit0
         paged_serving = pa.paged_attention.launches
         paged_cuda_serving = pa.paged_attention.cuda_launches
+        # read before the oracle: its dense forwards are not the path's
+        launches = {"paged_attention": pa.paged_attention.launches,
+                    "flash_attention": attn.flash_attention.launches}
         t0 = time.perf_counter()
         oracle = [models.dense_generate(params, cfg, p, NEW_TOKENS,
                                         device=dev) for p in prompts]
         t_oracle = time.perf_counter() - t0
-        launches = {"paged_attention": pa.paged_attention.launches,
-                    "flash_attention": attn.flash_attention.launches}
         # device memory allocated at the peak, and how much of it this
         # run added to what was allocated when it started (weights and
         # the block pool's class tensors may predate it)
@@ -797,9 +832,9 @@ def serve(dev, label, cfg, *, page_tokens, num_slots, max_pages,
                           f"oracle {o}")
         check(warm == cold, f"{label}: warm streams differ from cold")
         check(hit > 0, f"{label}: the warm pass hit no cached prefix")
-        check(launches["paged_attention"] > 0 and
-              launches["flash_attention"] > 0,
-              f"{label}: a kernel was not launched on the path: {launches}")
+        check(launches["paged_attention"] > 0,
+              f"{label}: the paged kernel was not launched on the path: "
+              f"{launches}")
         logits = models.dense_forward(
             params, cfg, torch.tensor([prompts[0]], device=dev),
             torch.arange(prompt_len, device=dev)[None])
@@ -2847,7 +2882,7 @@ CONSOLE_PAGES = ("/status", "/vars", "/brpc_metrics", "/rpcz", "/serving",
                  "/kvcache", "/hotspots", "/hotspots/locks")
 # the routes whose module the port lacks: 501, naming what brings them
 NOT_PORTED_ROUTES = frozenset((
-    "/ici", "/cluster", "/fleet", "/hotspots/cpu",
+    "/ici", "/fleet", "/hotspots/cpu",
     "/hotspots/native", "/hotspots/contention", "/hotspots/heap",
     "/hotspots/growth", "/pprof/profile", "/pprof/profile_native",
     "/pprof/contention", "/pprof/heap", "/pprof/growth"))
@@ -3544,6 +3579,394 @@ def serve_capture(dev, cfg, ctx, card):
         "cost_tokens_per_s": cost,
         "cost_on_over_off": [b / a for a, b in zip(cost["off"],
                                                    cost["on"])],
+        "wall_s": time.perf_counter() - t_phase,
+        "launches": counts.as_dict(), "paged_cuda_launches": counts.paged_cuda,
+    }
+
+
+# ---- step 17: the cluster front door --------------------------------------
+
+ROUTER_PAIRS = 2      # alternating warm router/direct pairs
+KILL_AFTER = 8        # tokens a stream holds when its replica or router dies
+RESTART_STREAMS = 4   # sessions through the router process that is killed
+
+
+def until(pred, timeout_s, poll_s=0.005):
+    """Poll ``pred`` until it holds or ``timeout_s`` passes."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        if pred():
+            return True
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(poll_s)
+
+
+def router_generate_all(addr, prompts, label):
+    """One ``RouterClient`` session per prompt, all started at once.
+    Returns the streams, the client-timed time to first token (seconds),
+    the session ids and the wall time."""
+    import brpc_tpu_torch.serving as serving
+    cli = serving.RouterClient(addr, timeout_ms=120_000)
+    t0 = time.perf_counter()
+    started = []
+    for p in prompts:
+        first = []
+
+        def emit(tok, first=first):
+            if not first:
+                first.append(time.perf_counter())
+
+        t_issue = time.perf_counter()
+        started.append((cli.start(p, NEW_TOKENS, emit=emit), first,
+                        t_issue))
+    for i, (g, _, _) in enumerate(started):
+        check(g.wait(300), f"{label}: session {i} hung")
+        check(g.error is None, f"{label}: session {i} ended with "
+                               f"E{g.error}")
+    wall = time.perf_counter() - t0
+    ttft = [first[0] - t for _, first, t in started if first]
+    return ([g.tokens for g, _, _ in started], ttft,
+            [g.session_id for g, _, _ in started], wall)
+
+
+def router_stats(addr):
+    import brpc_tpu_torch.rpc as rpc
+    return rpc.Channel(addr, timeout_ms=30_000).call_sync(
+        "Router", "Stats", {}, serializer="json",
+        response_serializer="json")
+
+
+def serve_router(dev, cfg, ctx, card):
+    """Step 17 (see the module docstring): two replicas of (b) behind the
+    port's ``ClusterRouter``; step 4's weights, prompts and oracle."""
+    import tempfile
+    import brpc_tpu_torch.migrate as migrate
+    import brpc_tpu_torch.models as models
+    import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.serving as serving
+    from brpc_tpu_torch import errors
+    from brpc_tpu_torch.ici.block_pool import BlockPool
+    from brpc_tpu_torch.rpc.stream import StreamRegistry
+    from brpc_tpu_torch.serving.router import parse_retry_after_s
+    from brpc_tpu_torch.serving.router_proc import spawn_router
+    geo, prompts, oracle = ctx["geometry"], ctx["prompts"], ctx["oracle"]
+    params = ctx["params"]
+    pt = geo["page_tokens"]
+    toks = N_REQUESTS * NEW_TOKENS
+    label = "b router"
+    counts = Counts()
+    t_phase = time.perf_counter()
+    streams0 = StreamRegistry.instance().count()
+    wal_dir = tempfile.mkdtemp(prefix="chip_smoke_wal_")
+    reps, procs = [], []
+
+    def replica(name):
+        """Store, runner, engine and a Server with Serving, _kvmig,
+        _cluster and _telemetry, on a block pool of its own."""
+        store = models.make_store_for(cfg, page_tokens=pt,
+                                      max_blocks=geo["max_blocks"],
+                                      pool=BlockPool(dev), name=name,
+                                      commit_live_pages=True)
+        engine = serving.DecodeEngine(
+            runner=models.TransformerRunner(params, cfg, store=store,
+                                            device=dev, name=name),
+            store=store, num_slots=geo["num_slots"],
+            max_pages_per_slot=geo["max_pages"],
+            prefill_buckets=geo["buckets"], device=dev, name=name)
+        server = rpc.Server(enable_dcn=True, dcn_device=str(dev))
+        svc = serving.register_serving(server, engine=engine)
+        mig = migrate.register_migration(server, store)
+        ctrl = serving.register_cluster_control(server, engine=engine,
+                                                store=store, name=name)
+        serving.register_telemetry(server, name=name)
+        server.start("127.0.0.1", 0)
+        addr = f"127.0.0.1:{server.port}"
+        svc.prefix_fetcher = migrate.make_prefix_fetcher(mig.migrator, addr)
+        r = {"name": name, "store": store, "engine": engine,
+             "server": server, "ctrl": ctrl, "mig": mig.migrator,
+             "addr": addr, "port": server.port, "alive": True,
+             "free0": store.pagepool.pool.stats()["classes"]}
+        reps.append(r)
+        return r
+
+    def kill(r):
+        """Process-death analog: the socket goes, the engine stops."""
+        r["alive"] = False
+        r["server"].stop()
+        r["server"].join()
+        r["engine"].close()
+
+    def streams_equal(name, got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            check(g == w, f"{label} {name}: stream {i} streamed {g}, dense "
+                          f"oracle {w}")
+
+    def pushes():
+        """Buddy pushes (PushTo migrations) and their pages, all
+        replicas."""
+        n = pages = 0
+        for r in reps:
+            for route in r["mig"].routes.values():
+                n += route["migrations"]
+                pages += route["pages"]
+        return n, pages
+
+    router = rsrv = None
+    try:
+        a, b = replica("b_router_r0"), replica("b_router_r1")
+        table = serving.SessionTable(wal=os.path.join(wal_dir, "r1.wal"))
+        router = serving.ClusterRouter(
+            [a["addr"], b["addr"]], sessions=table,
+            replicate_sessions=True, page_tokens=pt, name="b_router",
+            check_interval_s=0.05, timeout_ms=120_000,
+            progress_timeout_s=60.0)
+        rsrv = rpc.Server()
+        serving.register_router(rsrv, router)
+        rsrv.start("127.0.0.1", 0)
+        raddr = f"127.0.0.1:{rsrv.port}"
+        # the kill and router-restart prompts' dense oracle, outside the
+        # counted windows (Generate never reaches the dense forward)
+        rng = np.random.default_rng(17)
+        rprompts = [rng.integers(0, cfg.vocab, len(prompts[0])).tolist()
+                    for _ in range(RESTART_STREAMS + 1)]
+        roracle = [models.dense_generate(params, cfg, p, NEW_TOKENS,
+                                         device=dev) for p in rprompts]
+        # -- 1. routed streams, cold then warm; repeat prefixes stay put
+        cold, ttft_cold, sids, wall_cold = counts.window(
+            lambda: router_generate_all(raddr, prompts, f"{label} cold"))
+        streams_equal("cold", cold, oracle)
+        placed = [table.get(s).replica for s in sids]
+        warm, ttft_warm, sids, wall_warm = counts.window(
+            lambda: router_generate_all(raddr, prompts, f"{label} warm"))
+        streams_equal("warm", warm, oracle)
+        check([table.get(s).replica for s in sids] == placed,
+              f"{label}: a repeated prefix moved replica ({placed})")
+        placement = {r["addr"]: placed.count(r["addr"]) for r in (a, b)}
+        # -- 2. warm pairs: through the router against straight to one
+        # replica (the same prompts; warmed on it first)
+        counts.window(lambda: rpc_generate_all(a["port"], prompts,
+                                               f"{label} direct warm-up"))
+        pair = {"router": [], "direct": []}
+        pair_ttft = {"router": [], "direct": []}
+        for i in range(ROUTER_PAIRS):
+            for kind in ("router", "direct") if i % 2 == 0 \
+                    else ("direct", "router"):
+                if kind == "router":
+                    got, ttft, _, wall = counts.window(
+                        lambda: router_generate_all(raddr, prompts,
+                                                    f"{label} pair {i}"))
+                else:
+                    got, _, ttft, _, wall = counts.window(
+                        lambda: rpc_generate_all(
+                            a["port"], prompts, f"{label} direct {i}"))
+                streams_equal(f"{kind} pair {i}", got, oracle)
+                pair[kind].append(toks / wall)
+                pair_ttft[kind].append(1e3 * pct(ttft, 50))
+        # one more warm router pass with the fleet-telemetry pulls off:
+        # what they cost the pass (printed, not gated)
+        router.telemetry_collect = False
+        got, _, _, wall = counts.window(
+            lambda: router_generate_all(raddr, prompts,
+                                        f"{label} pulls off"))
+        streams_equal("pulls off", got, oracle)
+        pulls_off_tokens_per_s = toks / wall
+        router.telemetry_collect = True
+        # the default ladder held level 0 over the warm replicas
+        check(not any(router.stats()["gradient_fired"].values()),
+              f"{label}: the gradient fired over warm replicas: "
+              f"{router.stats()['ladder']}")
+        # -- 3. shed: the gradient forced to level 3; the replicas'
+        # floors follow over _cluster, a new session is refused
+        forced = [3]
+        router.add_floor_source(lambda: forced[0])
+        check(until(lambda: all(r["ctrl"].level == 3 for r in (a, b)), 10),
+              f"{label}: the replicas' floors did not follow over "
+              f"_cluster: {[r['ctrl'].level for r in (a, b)]}")
+        check(all(r["engine"].degraded_clamp == router.clamp_new_tokens
+                  for r in (a, b)), f"{label}: level 3 did not clamp")
+        shed = None
+        try:
+            g = serving.RouterClient(raddr, shed_retries=0).start(
+                prompts[0], NEW_TOKENS)
+            g.drop()
+        except errors.RpcError as e:
+            shed = e
+        check(shed is not None and shed.code == errors.ELIMIT,
+              f"{label}: a session was admitted at level 3 ({shed})")
+        retry_after = parse_retry_after_s(shed.text)
+        check(retry_after is not None and retry_after > 0,
+              f"{label}: the shed carried no retry_after_s: {shed.text}")
+        shed_fired = router.stats()["gradient_fired"]
+        forced[0] = 0
+        check(until(lambda: router.level == 0 and all(
+            r["ctrl"].level == 0 and r["engine"].degraded_clamp is None
+            for r in (a, b)), 10), f"{label}: the gradient did not clear")
+        # -- 4. a replica killed mid-decode while its client drops; the
+        # session resumes on the other from the client's cursor
+        cli = serving.RouterClient(raddr, timeout_ms=120_000)
+
+        def kill_and_resume():
+            g = cli.start(rprompts[0], NEW_TOKENS)
+            check(g.wait_tokens(KILL_AFTER, 120), f"{label}: no tokens")
+            s = table.get(g.session_id)
+            check(until(lambda: s.replicated_pages > 0, 60),
+                  f"{label}: no page reached the ring buddy")
+            victim = next(r for r in (a, b)
+                          if s.replica in (r["addr"],
+                                           f"127.0.0.1:{r['port']}"))
+            cursor, seen = g.cursor, g.tokens
+            g.drop()
+            record0 = s.cursor
+            t_kill = time.perf_counter()
+            kill(victim)
+            check(until(lambda: s.cursor > record0 or s.state != "running",
+                        120, 0.0005),
+                  f"{label}: the session never resumed")
+            stall = time.perf_counter() - t_kill
+            out = cli.resume_wait(g.session_id, cursor, timeout_s=120)
+            check(out["error"] is None and s.state == "finished",
+                  f"{label}: resume ended with E{out['error']} "
+                  f"({s.state})")
+            streams_equal("replica kill", [seen[:cursor] + out["tokens"]],
+                          [roracle[0]])
+            total = len(rprompts[0]) + NEW_TOKENS
+            check(s.resumes >= 1 and 0 < s.re_decoded_tokens < total,
+                  f"{label}: resumes {s.resumes}, re-decoded "
+                  f"{s.re_decoded_tokens} of {total}")
+            return victim, stall, s.snapshot()
+
+        victim, kill_stall, killed = counts.window(kill_and_resume)
+        survivor = b if victim is a else a
+        router_pushes = pushes()
+        router_placements = router.placements()
+        router.close()
+        table.close()
+        rsrv.stop()
+        rsrv.join()
+        rsrv = None
+        # -- 5. the router in its own process, SIGKILLed mid-generation;
+        # a successor over the same WAL adopts the sessions and every
+        # client resumes from its cursor.  A fresh replica replaces the
+        # killed one; the survivor keeps its warm cache
+        c = replica("b_router_r2")
+        check(survivor["engine"].join_idle(60),
+              f"{label}: {survivor['name']} not idle")
+        wal2 = os.path.join(wal_dir, "proc.wal")
+        addrs = [survivor["addr"], c["addr"]]
+        rkw = dict(replicate_sessions=True, page_tokens=pt,
+                   timeout_ms=120_000, progress_timeout_s=60.0,
+                   timeout_s=120.0)
+
+        def router_death():
+            proc, paddr = spawn_router(wal2, addrs, **rkw)
+            procs.append(proc)
+            epoch1 = router_stats(paddr)["epoch"]
+            pcli = serving.RouterClient(paddr, timeout_ms=120_000)
+            gens = [pcli.start(p, NEW_TOKENS) for p in rprompts[1:]]
+            for i, g in enumerate(gens):
+                check(g.wait_tokens(KILL_AFTER, 120),
+                      f"{label}: router stream {i} has no tokens")
+            t_kill = time.perf_counter()
+            proc.kill()
+            proc.wait(30)
+            held = [(g.session_id, g.cursor, g.tokens) for g in gens]
+            for g in gens:
+                g.drop()
+            proc2, paddr2 = spawn_router(wal2, addrs, **rkw)
+            procs.append(proc2)
+            t_up = time.perf_counter()
+            st2 = router_stats(paddr2)
+            check(st2["epoch"] > epoch1,
+                  f"{label}: successor epoch {st2['epoch']} <= {epoch1}")
+            check((st2["wal_replay"] or {}).get("live", 0) >= len(gens),
+                  f"{label}: the successor adopted {st2['wal_replay']}")
+            qcli = serving.RouterClient(paddr2, timeout_ms=120_000)
+            firsts, resumed = [], []
+            for sid, cursor, seen in held:
+                first = []
+
+                def emit(tok, first=first):
+                    if not first:
+                        first.append(time.perf_counter())
+
+                resumed.append((qcli.resume(sid, cursor, emit=emit), first,
+                                cursor, seen))
+            for i, (g, first, cursor, seen) in enumerate(resumed):
+                check(g.wait(120) and g.error is None,
+                      f"{label}: resumed stream {i} ended with E{g.error}")
+                streams_equal(f"router restart {i}",
+                              [seen[:cursor] + g.tokens], [roracle[i + 1]])
+                firsts.append(first[0] if first else None)
+            stats = router_stats(paddr2)
+            proc2.stdin.close()
+            proc2.wait(30)
+            return {"epochs": [epoch1, st2["epoch"]],
+                    "kill_to_successor_up_ms": 1e3 * (t_up - t_kill),
+                    "kill_to_first_resumed_token_ms": sorted(
+                        1e3 * (f - t_kill) for f in firsts if f),
+                    "wal_replay": st2["wal_replay"],
+                    "resumes": stats["resumes"],
+                    "replayed_tokens": stats["replayed_tokens"],
+                    "cursors": [h[1] for h in held]}
+
+        restart = counts.window(router_death)
+        all_pushes = pushes()
+        # -- 6. pages, rings and streams back at their baselines
+        for r in reps:
+            if r["alive"]:
+                check(r["engine"].join_idle(60), f"{label}: {r['name']} "
+                                                 f"not idle")
+                kill(r)
+            live_n = r["store"].stats()["live_seqs"]
+            check(live_n == 0, f"{label}: {live_n} sequences live on "
+                               f"{r['name']}")
+            r["store"].clear()
+            check(r["store"].pagepool.blocks_leased() == 0 and
+                  r["store"].pagepool.pool.stats()["classes"] == r["free0"],
+                  f"{label}: {r['name']}'s page pool is not at its "
+                  f"baseline")
+        check(until(lambda: StreamRegistry.instance().count() <= streams0,
+                    10, 0.05),
+              f"{label}: {StreamRegistry.instance().count() - streams0} "
+              f"streams leaked")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        if router is not None:
+            router.close()
+        if rsrv is not None:
+            rsrv.stop()
+            rsrv.join()
+        for r in reps:
+            if r["alive"]:
+                kill(r)
+        import shutil
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    check(counts.paged > 0, f"{label}: launches {counts.as_dict()}")
+    return {
+        "config": label, "card": card, "requests": N_REQUESTS,
+        "new_tokens": NEW_TOKENS,
+        "cold_tokens_per_s": toks / wall_cold,
+        "warm_tokens_per_s": toks / wall_warm,
+        "ttft_ms": {"cold": 1e3 * pct(ttft_cold, 50),
+                    "warm": 1e3 * pct(ttft_warm, 50)},
+        "placement": placement,
+        "pair_tokens_per_s": pair, "pair_ttft_ms_p50": pair_ttft,
+        "pair_tokens_per_s_median": {k: pct(v, 50)
+                                     for k, v in pair.items()},
+        "router_over_direct": [r / d for r, d in zip(pair["router"],
+                                                     pair["direct"])],
+        "pulls_off_tokens_per_s": pulls_off_tokens_per_s,
+        "shed": {"code": shed.code, "retry_after_s": retry_after,
+                 "gradient_fired": shed_fired},
+        "replica_kill": {"stall_ms": 1e3 * kill_stall, "session": killed},
+        "router_restart": restart,
+        "buddy_pushes": {"in_process_router": router_pushes,
+                         "whole_step": all_pushes},
+        "placements": router_placements[-4:],
         "wall_s": time.perf_counter() - t_phase,
         "launches": counts.as_dict(), "paged_cuda_launches": counts.paged_cuda,
     }
@@ -4475,6 +4898,40 @@ def main() -> int:
           f"median {pct(r['cost_on_over_off'], 50):.4f}; phase wall "
           f"{r['wall_s']:.1f} s; launches {r['launches']} "
           f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
+    # -- step 17: the cluster front door, (b) again
+    served_router = serve_router(dev, cfg_b, ctx_b, card)
+    check_rings("serve router", rings0)
+    phase_done("serve router")
+    r = served_router
+    rk, rr = r["replica_kill"], r["router_restart"]
+    print(f"serve b router [{card}]: 8 sessions of {NEW_TOKENS} tokens "
+          f"through the ClusterRouter over 2 replicas (placement "
+          f"{json.dumps(r['placement'])}): cold "
+          f"{r['cold_tokens_per_s']:.1f} tok/s, warm "
+          f"{r['warm_tokens_per_s']:.1f}, TTFT p50 ms "
+          f"{json.dumps(r['ttft_ms'])}; {ROUTER_PAIRS} alternating warm "
+          f"pairs router/direct to one replica, tok/s "
+          f"{json.dumps(r['pair_tokens_per_s'])}, TTFT p50 ms "
+          f"{json.dumps(r['pair_ttft_ms_p50'])}, router/direct "
+          f"{json.dumps([round(x, 4) for x in r['router_over_direct']])}; "
+          f"one router pass with the telemetry pulls off "
+          f"{r['pulls_off_tokens_per_s']:.1f} tok/s", flush=True)
+    print(f"serve b router faults [{card}]: shed at level 3 "
+          f"E{r['shed']['code']} retry_after_s "
+          f"{r['shed']['retry_after_s']}; replica kill after {KILL_AFTER} "
+          f"tokens -> first resumed token {rk['stall_ms']:.1f} ms, "
+          f"re-decoded {rk['session']['re_decoded_tokens']} of "
+          f"{len(ctx_b['prompts'][0]) + NEW_TOKENS} tokens, replicated "
+          f"pages {rk['session']['replicated_pages']}; router SIGKILL "
+          f"after {KILL_AFTER} tokens of {RESTART_STREAMS} sessions -> "
+          f"successor up {rr['kill_to_successor_up_ms']:.1f} ms, first "
+          f"resumed tokens ms "
+          f"{json.dumps([round(x, 1) for x in rr['kill_to_first_resumed_token_ms']])}"
+          f", epochs {rr['epochs']}, WAL replay "
+          f"{json.dumps(rr['wal_replay'])}; buddy pushes (migrations, "
+          f"pages) {json.dumps(r['buddy_pushes'])}; phase wall "
+          f"{r['wall_s']:.1f} s; launches {r['launches']} "
+          f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
     print(f"phase seconds [{card}]: {json.dumps(phase_s)}", flush=True)
     print(f"profiler windows taken again, whole script: "
           f"{BLIND_WINDOWS[0]}", flush=True)
@@ -4486,7 +4943,7 @@ def main() -> int:
                        served + speculative + [served_rpc, served_control,
                                                served_host, served_replicas,
                                                served_migration, served_http,
-                                               served_capture])
+                                               served_capture, served_router])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "max_abs_diff": err,
@@ -4517,7 +4974,8 @@ def main() -> int:
               "trainer_wire": trainer,
               "migration_serving": served_migration,
               "http_serving": served_http,
-              "capture_serving": served_capture, "phase_s": phase_s,
+              "capture_serving": served_capture,
+              "router_serving": served_router, "phase_s": phase_s,
               "native_build_s": cbuild.build_seconds,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,

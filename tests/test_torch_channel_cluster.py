@@ -448,26 +448,36 @@ class TestFaultSites:
         assert ch.call_sync("Node", "Fields", {},
                             serializer="json") == {"tag": "a"}
 
-    def _stream_through(self, servers, plan, n=20, size=100):
-        """n messages of ``size`` bytes under ``plan``, the writer's
-        window larger than all of them, the reader acknowledging every
-        200 bytes: the server must receive each once, in order.
+    def _stream_through(self, servers, plan, n=20, size=100, bursts=1,
+                        before_close=None):
+        """``bursts`` bursts of n messages of ``size`` bytes under
+        ``plan``, each written once the server has read the previous
+        one, the writer's window larger than all of them, the reader
+        acknowledging every 200 bytes: the server must receive each
+        once, in order.  ``before_close(stream)`` runs once every burst
+        is read, before the writer closes (a closed stream leaves the
+        registry, and feedback still in flight to it is dropped).
         Returns the writer's stream."""
         srv = _start(servers, rpc, "sink")
         ch = rpc.Channel(_addr(srv), timeout_ms=5000)
         msgs = [bytes([i]) * size for i in range(n)]
         with fault.injected(plan):
             cntl = rpc.Controller()
-            s = rpc.stream_create(cntl, None, max_buf_size=2 * n * size)
+            s = rpc.stream_create(cntl, None,
+                                  max_buf_size=2 * bursts * n * size)
             ch.call_sync("Node", "Sink", {"buf": 400}, serializer="json",
                          cntl=cntl)
-            for m in msgs:
-                s.write(m, timeout_s=5.0)
-            assert srv.svc.sunk_closed.wait(0.01) is False
-            assert wait_until(lambda: len(srv.svc.sunk) == n, timeout=10)
+            for b in range(1, bursts + 1):
+                for m in msgs:
+                    s.write(m, timeout_s=5.0)
+                assert srv.svc.sunk_closed.wait(0.01) is False
+                assert wait_until(lambda: len(srv.svc.sunk) == b * n,
+                                  timeout=10)
+            if before_close is not None:
+                before_close(s)
             s.close()
             assert srv.svc.sunk_closed.wait(10)
-        assert srv.svc.sunk == msgs
+        assert srv.svc.sunk == msgs * bursts
         return s
 
     def test_duplicated_data_frame_is_delivered_once(self, _clean):
@@ -484,20 +494,34 @@ class TestFaultSites:
         plan = fault.FaultPlan(5).on(
             fault.FRAME, fault.DROP, times=1,
             match=lambda ctx: ctx["msg_type"] == M.MSG_STREAM_FEEDBACK)
-        s = self._stream_through(_clean, plan)
+
+        def credit_returned(s):
+            # a later feedback arrived (on the client's IO thread); the
+            # second burst makes one certain, as for the lost feedback
+            # below
+            assert wait_until(lambda: s._remote_consumed > 0, timeout=5)
+
+        self._stream_through(_clean, plan, bursts=2,
+                             before_close=credit_returned)
         assert plan.injected == {fault.FRAME: 1}
         assert find_exposed("fault_injected_stream_frame").get_value() \
             == c0 + 1
-        # a later feedback arrived (on the client's IO thread, which may
-        # not have read it yet when the server saw the close)
-        assert wait_until(lambda: s._remote_consumed > 0, timeout=5)
 
     def test_lost_feedback_returns_credit_at_the_next(self, _clean):
+        """The first burst's reads send at least one feedback, the one
+        dropped; a reader late to its first delivery reads the rest of
+        a burst in one batch and sends no other.  A second burst,
+        written once the first is read, sends the next feedback, and
+        the writer waits for it before it closes."""
         plan = fault.FaultPlan(6).on(fault.FEEDBACK, fault.DROP, times=1)
-        s = self._stream_through(_clean, plan)
+
+        def credit_returned(s):
+            # the next feedback arrived (read on the client's IO thread)
+            assert wait_until(lambda: s._remote_consumed > 0, timeout=5)
+
+        self._stream_through(_clean, plan, bursts=2,
+                             before_close=credit_returned)
         assert plan.injected == {fault.FEEDBACK: 1}
-        # the next feedback arrived (read on the client's IO thread)
-        assert wait_until(lambda: s._remote_consumed > 0, timeout=5)
 
 
 # ---- exactly once under racing backups and retries ------------------------

@@ -38,7 +38,7 @@ from brpc_tpu_torch.builtin import services
 from testutil import wait_until
 
 # the routes whose module the port has not ported: 501
-NOT_PORTED = {"/ici", "/cluster", "/fleet",
+NOT_PORTED = {"/ici", "/fleet",
               "/hotspots/cpu", "/hotspots/native", "/hotspots/contention",
               "/hotspots/heap", "/hotspots/growth", "/pprof/profile",
               "/pprof/profile_native", "/pprof/contention", "/pprof/heap",

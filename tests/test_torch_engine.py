@@ -207,7 +207,9 @@ def test_port_runs_without_jax_or_brpc_tpu():
     its RPC front, its Serving service, the batcher, the supervisor,
     tensorframe, bvar and fault, the client policies, the combo
     channels, the PS shards, the training plane and the PS model,
-    recordio, rpc_dump, rpc_replay and the flight recorder too), serving
+    recordio, rpc_dump, rpc_replay and the flight recorder, the router
+    tier, its WAL, the ``_cluster`` and ``_telemetry`` services, the model
+    plane, router_proc, rpc_press and ``LegacyFnRunner`` too), serving
     one CPU request through a speculative engine, one
     ``Serving.Generate`` over loopback through the port's own server and
     channel (the engine behind an ``EngineSupervisor`` with an endpoint
@@ -220,11 +222,16 @@ def test_port_runs_without_jax_or_brpc_tpu():
     ``Server(enable_dcn=True)``, and the HTTP face
     (``builtin.services``, ``rpc.http``, ``builtin.sampler``:
     ``/status`` and a chunked ``/serving/generate`` through the port's
-    ``HttpChannel``), leaves jax and the JAX package out of sys.modules;
+    ``HttpChannel``), leaves jax and the JAX package out of sys.modules
+    (and torch, until the first module past the router tier);
     the only native core mapped is the port's own build."""
     code = textwrap.dedent("""
         import json, sys, threading
         import numpy as np
+        # the router tier (and the RPC front under it) loads without
+        # torch: a router process starts without its import
+        import brpc_tpu_torch.serving.router_proc
+        assert "torch" not in sys.modules
         import brpc_tpu_torch
         import brpc_tpu_torch.rpc as rpc
         import brpc_tpu_torch.bvar, brpc_tpu_torch.fault
@@ -239,6 +246,13 @@ def test_port_runs_without_jax_or_brpc_tpu():
         import brpc_tpu_torch.builtin.sampler
         import brpc_tpu_torch.tools.parallel_http
         import brpc_tpu_torch.tools.rpc_view
+        import brpc_tpu_torch.serving.router, brpc_tpu_torch.serving.session_wal
+        import brpc_tpu_torch.serving.cluster_control
+        import brpc_tpu_torch.serving.telemetry
+        import brpc_tpu_torch.serving.modelplane
+        import brpc_tpu_torch.serving.router_proc
+        import brpc_tpu_torch.tools.rpc_press
+        from brpc_tpu_torch.models import LegacyFnRunner
         import os, tempfile
         from brpc_tpu_torch import flags, rpcz
         from brpc_tpu_torch.butil import flight, recordio
