@@ -16,12 +16,17 @@ from the span database when the in-memory store lost it),
 ``/hotspots/locks`` (the lock ledger and the lock-order witness),
 ``/flightrecorder`` (the native flight recorder: the per-thread table,
 the merged event tail and the syscall counters; ``?limit=N``,
-``?fmt=json``), ``/vlog`` and ``/dir`` (off unless
-``enable_dir_service``).
+``?fmt=json``), ``/cluster`` (the routers' replica tables),
+``/fleet`` (the fleet collector's replicas and series, the per-model
+scoreboard, the canary picks, the SLO engine's burns and decision
+trail; ``?fmt=json``, ``?points=N``), ``/vlog`` and ``/dir`` (off unless
+``enable_dir_service``).  On a router, ``/rpcz?trace_id=`` stitches in
+the trace's spans from the processes its collector pulls, and
+``/brpc_metrics`` adds the fleet families.
 
 The pages whose module the port has not ported yet answer 501 and name
-the ROADMAP item that brings them: ``/ici`` (Queue 1 item 8),
-``/fleet`` (item 7, second half), the on-demand profilers
+the ROADMAP item that brings them: ``/ici`` (Queue 1 item 8), the
+on-demand profilers
 ``/hotspots/{cpu,native,contention,heap,growth}`` and ``/pprof/*``
 (``builtin/profiler.py``).  A page whose data source raises answers 500
 with the traceback (the router's rule).
@@ -195,13 +200,31 @@ def build_routes(server) -> dict:
         if tid:
             # the timeline of ONE trace, tree-ordered with relative
             # offsets; the span database when the in-memory store lost
-            # it (the fleet's cross-process stitching waits for item 7, second half)
+            # it; on a router, the fleet collector's fan-out adds the
+            # trace's spans from the replicas and PS shards it pulls
             spans = rpcz.recent_spans(2048, int(tid))
             if not spans:
                 spans = rpcz.load_disk_spans(2048, int(tid))
+            if f"{_PKG}.serving" in sys.modules:
+                try:
+                    from ..serving import fleet_trace_spans
+                    seen = {(s.trace_id, s.span_id, s.kind, s.start_us)
+                            for s in spans}
+                    for s in fleet_trace_spans(int(tid)):
+                        key = (s.trace_id, s.span_id, s.kind, s.start_us)
+                        if key not in seen:
+                            seen.add(key)
+                            spans.append(s)
+                except Exception:
+                    pass   # a dead peer must not 500 the local view
             if not spans:
                 return f"no spans collected for trace {tid}\n"
-            return rpcz.format_trace(spans)
+            # span ids carry their process in the top bits, so the
+            # processes of a stitched tree count without a pid field
+            pids = {s.span_id >> 40 for s in spans}
+            head = (f"(stitched across {len(pids)} processes)\n"
+                    if len(pids) > 1 else "")
+            return head + rpcz.format_trace(spans)
         spans = rpcz.recent_spans(limit)
         lines = []
         for s in reversed(spans):
@@ -227,7 +250,7 @@ def build_routes(server) -> dict:
         # Prometheus text: LatencyRecorders as quantile-labelled summary
         # families, Adders as counters, the rest as gauges, every family
         # with a # HELP line; MultiDimension variables with their label
-        # names.  (The fleet families wait for item 7, second half.)
+        # names; on a router, the fleet families (below).
         from ..bvar.multi_dimension import MultiDimension
         from ..bvar.recorder import IntRecorder, LatencyRecorder
         from ..bvar.reducer import Adder, PassiveStatus
@@ -305,6 +328,11 @@ def build_routes(server) -> dict:
                 out.append(f"# HELP {name} bvar {what}")
                 out.append(f"# TYPE {name} {kind}")
                 out.append(f"{name} {v}")
+        if f"{_PKG}.serving" in sys.modules:
+            try:
+                out.extend(_fleet_families(esc))
+            except Exception:
+                pass   # fleet families are additive, never 500 a scrape
         return "\n".join(out) + "\n", "text/plain; version=0.0.4"
 
     def services_page(req):
@@ -592,8 +620,157 @@ def build_routes(server) -> dict:
                 + "flip recording live: /flags?setvalue="
                 + "flight_recorder_enabled&value=false\n")
 
-    fleet = _not_ported("ROADMAP Queue 1 item 7, second half (the fleet "
-                        "pages)")
+    def fleet_page(req):
+        # per router: the collector's replica table (pulls, bytes,
+        # tombstones), the per-model scoreboard, the canary picks, the
+        # SLO engine's burn rates and decision trail, and the series'
+        # sparklines; ?fmt=json for the raw snapshot, ?points=N sizes
+        # the sparklines
+        if f"{_PKG}.serving" not in sys.modules:
+            return "no cluster routers registered\n"
+        from ..serving import fleet_snapshot
+        try:
+            points = min(128, max(2, int(req.query.get("points", "32"))))
+        except ValueError:
+            points = 32
+        snap = fleet_snapshot(points)
+        if not snap["routers"]:
+            return "no cluster routers registered\n"
+        if req.query.get("fmt") == "json":
+            return json.dumps(snap, indent=1), "application/json"
+        out = ["<html><body><style>td,th{padding:2px 8px;"
+               "font:12px monospace}table{border-collapse:collapse}"
+               "th{text-align:left;border-bottom:1px solid #999}"
+               "</style>"]
+        for rname, fs in sorted(snap["routers"].items()):
+            col = fs.get("collector") or {}
+            out.append(f"<h2>fleet: {html.escape(rname)}</h2>")
+            out.append(
+                f"<p>pulls={col.get('pulls', 0)} "
+                f"bytes={col.get('pull_bytes', 0)} "
+                f"errors={col.get('pull_errors', 0)} "
+                f"tombstones={col.get('tombstones', 0)} "
+                f"series={col.get('series', 0)} "
+                f"fleet_spans={col.get('fleet_spans', 0)}</p>")
+            rows = col.get("replicas") or []
+            if rows:
+                out.append("<h3>replicas</h3><table><tr>"
+                           "<th>addr</th><th>name</th><th>pid</th>"
+                           "<th>pulls</th><th>errors</th><th>state</th>"
+                           "<th>bytes</th><th>age_s</th>"
+                           "<th>write_syscalls</th></tr>")
+                for r in rows:
+                    state = ("TOMBSTONED" if r.get("tombstoned")
+                             else "no-telemetry" if r.get("unsupported")
+                             else "live")
+                    sc = (r.get("syscalls") or {}).get("write_syscalls",
+                                                       "")
+                    out.append(
+                        f"<tr><td>{html.escape(str(r.get('addr')))}</td>"
+                        f"<td>{html.escape(str(r.get('name') or ''))}</td>"
+                        f"<td>{r.get('pid') or ''}</td>"
+                        f"<td>{r.get('pulls', 0)}</td>"
+                        f"<td>{r.get('errors', 0)}</td>"
+                        f"<td>{state}</td>"
+                        f"<td>{r.get('last_bytes', 0)}</td>"
+                        f"<td>{r.get('pull_age_s') or ''}</td>"
+                        f"<td>{sc}</td></tr>")
+                out.append("</table>")
+            models = fs.get("models") or {}
+            if models:
+                out.append("<h3>models</h3><table><tr><th>key</th>"
+                           "<th>sessions</th><th>sheds</th>"
+                           "<th>finished</th><th>failed</th>"
+                           "<th>ttft_p99_ms</th><th>itl_p99_ms</th>"
+                           "</tr>")
+                for key, row in sorted(models.items()):
+                    out.append(
+                        f"<tr><td>{html.escape(key)}</td>"
+                        f"<td>{row.get('sessions', 0)}</td>"
+                        f"<td>{row.get('sheds', 0)}</td>"
+                        f"<td>{row.get('finished', 0)}</td>"
+                        f"<td>{row.get('failed', 0)}</td>"
+                        f"<td>{(row.get('ttft') or {}).get('p99_ms')}"
+                        f"</td>"
+                        f"<td>{(row.get('itl') or {}).get('p99_ms')}"
+                        f"</td></tr>")
+                out.append("</table>")
+            canary = fs.get("canary") or {}
+            if canary:
+                out.append("<h3>canary picks</h3><table>"
+                           "<tr><th>model</th><th>splits</th></tr>")
+                for m, picks in sorted(canary.items()):
+                    split = " ".join(f"{html.escape(k)}={v}"
+                                     for k, v in sorted(picks.items()))
+                    out.append(f"<tr><td>{html.escape(m)}</td>"
+                               f"<td>{split}</td></tr>")
+                out.append("</table>")
+            slo = fs.get("slo")
+            if slo:
+                cw = slo.get("clean_windows") or {}
+                out.append(
+                    f"<h3>slo: {html.escape(slo.get('model_id', ''))} "
+                    f"— {html.escape(slo.get('state', ''))}</h3>"
+                    f"<p>canary={html.escape(slo.get('canary', ''))} "
+                    f"baseline={html.escape(slo.get('baseline', ''))} "
+                    f"clean_windows={cw.get('streak', 0)}/"
+                    f"{cw.get('required', 0)} "
+                    f"holds={slo.get('holds', 0)} "
+                    f"floor={slo.get('floor', 0)}</p>")
+                last = slo.get("last_eval") or {}
+                for side in ("canary", "baseline"):
+                    ev = last.get(side) or {}
+                    burns = ev.get("burns") or {}
+                    if not burns:
+                        continue
+                    out.append(f"<h4>{side}: "
+                               f"{html.escape(str(ev.get('verdict')))}"
+                               f"</h4><table><tr><th>metric</th>"
+                               f"<th>target</th><th>burn_short</th>"
+                               f"<th>burn_long</th></tr>")
+                    for met, b in sorted(burns.items()):
+                        flag = " &#x1F525;" if b.get("burning") else ""
+                        out.append(
+                            f"<tr><td>{html.escape(met)}{flag}</td>"
+                            f"<td>{b.get('target')}</td>"
+                            f"<td>{b.get('short')}</td>"
+                            f"<td>{b.get('long')}</td></tr>")
+                    out.append("</table>")
+                trail = slo.get("trail") or []
+                if trail:
+                    out.append("<h4>decision trail</h4><table>"
+                               "<tr><th>t</th><th>verdict</th>"
+                               "<th>action</th><th>detail</th></tr>")
+                    for ev in trail[-20:]:
+                        t = time.strftime(
+                            "%H:%M:%S", time.localtime(ev.get("t", 0)))
+                        out.append(
+                            f"<tr><td>{t}</td>"
+                            f"<td>{html.escape(ev.get('verdict', ''))}"
+                            f"</td>"
+                            f"<td>{html.escape(ev.get('action', ''))}"
+                            f"</td>"
+                            f"<td>{html.escape(ev.get('detail', ''))}"
+                            f"</td></tr>")
+                    out.append("</table>")
+            series = fs.get("series") or {}
+            if series:
+                out.append("<h3>series</h3><table><tr><th>replica</th>"
+                           "<th>model</th><th>metric</th><th>last</th>"
+                           "<th>spark</th></tr>")
+                for rep, models_ in sorted(series.items()):
+                    for mod, mets in sorted(models_.items()):
+                        for met, vals in sorted(mets.items()):
+                            out.append(
+                                f"<tr><td>{html.escape(rep)}</td>"
+                                f"<td>{html.escape(mod)}</td>"
+                                f"<td>{html.escape(met)}</td>"
+                                f"<td>{vals[-1] if vals else ''}</td>"
+                                f"<td>{_spark(vals)}</td></tr>")
+                out.append("</table>")
+        out.append("<p>args: ?fmt=json ?points=N</p></body></html>")
+        return "\n".join(out), "text/html"
+
     profiler = _not_ported("builtin/profiler.py (ROADMAP Queue 1 item 6)")
     routes = {
         "/": index, "/index": index,
@@ -617,7 +794,7 @@ def build_routes(server) -> dict:
         "/kvcache": kvcache_page,
         "/migration": migration_page,
         "/cluster": cluster_page,
-        "/fleet": fleet,
+        "/fleet": fleet_page,
         "/psserve": psserve_page,
         "/flightrecorder": flightrecorder_page,
         "/hotspots": hotspots_index,
@@ -637,6 +814,65 @@ def build_routes(server) -> dict:
         "/dir/": dir_page,     # prefix route: /dir/<abs path>
     }
     return routes
+
+
+def _fleet_families(esc) -> list:
+    """``/brpc_metrics``' fleet families on a router: every collected
+    series' last sample as ``brpc_fleet_metric`` with replica, model and
+    metric labels, the collector's tombstones, and each SLO engine's
+    state, floor, evaluations and holds."""
+    out = []
+    from ..serving import fleet_snapshot
+    snap = fleet_snapshot(points=1)
+    rows, dead, slos = [], [], []
+    for fs in snap["routers"].values():
+        for rep, models in (fs.get("series") or {}).items():
+            for mod, mets in models.items():
+                for met, vals in mets.items():
+                    if vals:
+                        rows.append((rep, mod, met, vals[-1]))
+        for r in (fs.get("collector") or {}).get("replicas", []):
+            dead.append((r.get("addr", ""),
+                         1 if r.get("tombstoned") else 0))
+        if fs.get("slo"):
+            slos.append(fs["slo"])
+    if rows:
+        out.append("# HELP brpc_fleet_metric last collected "
+                   "fleet series sample")
+        out.append("# TYPE brpc_fleet_metric gauge")
+        for rep, mod, met, v in sorted(rows):
+            out.append(f'brpc_fleet_metric{{replica="{esc(rep)}",'
+                       f'model="{esc(mod)}",metric="{esc(met)}"}} {v}')
+    if dead:
+        out.append("# HELP brpc_fleet_tombstoned replica "
+                   "tombstoned by the fleet collector")
+        out.append("# TYPE brpc_fleet_tombstoned gauge")
+        for rep, v in sorted(dead):
+            out.append(f'brpc_fleet_tombstoned{{replica="{esc(rep)}"}} {v}')
+    if slos:
+        out.append("# HELP brpc_fleet_slo_state SLO "
+                   "engine ramp state (1 = current)")
+        out.append("# TYPE brpc_fleet_slo_state gauge")
+        for s in slos:
+            out.append(
+                f'brpc_fleet_slo_state{{model='
+                f'"{esc(s.get("model_id", ""))}",state='
+                f'"{esc(s.get("state", ""))}"}} 1')
+        for fam, key, what in (
+                ("brpc_fleet_slo_floor", "floor",
+                 "advisory overload floor while burning"),
+                ("brpc_fleet_slo_evaluations",
+                 "evaluations", "burn evaluations run"),
+                ("brpc_fleet_slo_holds", "holds",
+                 "ramp holds during fleet disruption")):
+            out.append(f"# HELP {fam} {what}")
+            out.append(f"# TYPE {fam} gauge")
+            for s in slos:
+                out.append(
+                    f'{fam}{{model='
+                    f'"{esc(s.get("model_id", ""))}"}}'
+                    f' {int(s.get(key, 0) or 0)}')
+    return out
 
 
 class _DashHistory:

@@ -10,8 +10,12 @@ end to end:
 
   * :class:`PrefillReplica` (the prefill process) admits the prompt into
     its own store, runs the real model's prefill (``run_prefill``: the
-    paged kernel once per layer) into its pages, commits them to its
-    radix tree, and ships them to the decode process through a
+    paged kernel once per layer) into its pages -- or, with ``batcher=``
+    instead of ``runner=``, sends the uncached suffix through the
+    caller's ``DynamicBatcher`` so concurrent Prefill calls coalesce as
+    unary Score calls do (a harness-mode store's pages hold the token
+    ids from the admission) --, commits them to its radix tree, and
+    ships them to the decode process through a
     :class:`~brpc_tpu_torch.migrate.PageMigrator`;
   * the decode process splices them (``register_migration``) and runs
     only the decode loop: its engine's admission prefix-hits the
@@ -24,10 +28,6 @@ end to end:
 A failed migration is a RECOMPUTE FALLBACK, never a failure: the
 decode-side admission misses, prefills the suffix itself, and the
 generation completes bit-exact.
-
-The reference's ``batcher=`` prefill path serves its token-id stand-in
-stores; here ``batcher=`` without ``runner=`` raises (ROADMAP Queue 1
-item 7, second half, brings that path).
 
 FAILOVER.  :class:`StandbySync` wraps an engine-shaped ``submit`` (a
 ``DecodeEngine`` or an ``EngineSupervisor``) and write-ahead-streams to
@@ -57,6 +57,8 @@ import time
 from collections import deque
 from typing import Callable, Optional, Sequence
 
+import numpy as np
+
 from .. import errors, rpcz
 from ..butil import stagetag
 from ..butil.lockprof import InstrumentedLock
@@ -77,20 +79,20 @@ _sids = itertools.count(1)
 
 class PrefillReplica:
     """The prefill process's role: admit and prefill against a local
-    store with ``runner`` (a ``TransformerRunner`` bound to it), then
-    ship the finished pages to the decode process."""
+    store -- with ``runner`` (a ``TransformerRunner`` bound to it), or
+    through ``batcher`` (the caller's ``DynamicBatcher`` around its
+    prefill function) --, then ship the finished pages to the decode
+    process."""
 
     def __init__(self, store, decode_addr: str, *, batcher=None,
                  runner=None, name: str = "prefill",
                  timeout_ms: int = 10_000):
-        if runner is None:
-            raise ValueError(
-                "PrefillReplica needs runner= (a TransformerRunner on the "
-                "store): the batcher= prefill path is not ported yet "
-                "(ROADMAP Queue 1 item 7, second half)")
         self.store = store
         self.decode_addr = decode_addr
         self.runner = runner
+        # concurrent Prefill calls coalesce into bucket-padded batches
+        # through it, as unary Score calls do
+        self.batcher = batcher
         self.name = name
         self.migrator = PageMigrator(store, name=f"{name}_migrator",
                                      timeout_ms=timeout_ms)
@@ -103,15 +105,20 @@ class PrefillReplica:
         hand-off record the coordinator forwards: the emitted-prompt
         cursor, the local prefix hit, the pages migrated, and whether the
         decode side must recompute (the migration failed)."""
-        from ..models.runner import run_prefill
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise errors.RpcError(errors.EREQUEST, "empty prompt")
         with stagetag.stage("prefill"):
             seq = self.store.admit(prompt)
             hit = seq.prefix_hit_tokens
+            suffix = prompt[hit:]
             try:
-                run_prefill(self.runner, seq, prompt)
+                if self.runner is not None:
+                    from ..models.runner import run_prefill
+                    run_prefill(self.runner, seq, prompt)
+                elif self.batcher is not None and suffix:
+                    self.batcher.submit_wait(
+                        np.asarray(suffix, np.float32), timeout_s=60)
             except Exception as e:
                 self.store.retire(seq, cache=False)
                 if isinstance(e, errors.RpcError):

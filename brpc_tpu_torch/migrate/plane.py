@@ -168,10 +168,13 @@ class PageMigrator:
     MAX_CACHED_CHAINS = 8192
 
     def __init__(self, store, *, name: str = "migrator",
-                 timeout_ms: int = 10_000):
+                 timeout_ms: int = 10_000, model: str = ""):
         self.store = store
         self.name = name
         self.timeout_ms = int(timeout_ms)
+        # the model plane: the deployment this store's pages belong to,
+        # the default tag of every fetch (see MigrateService)
+        self.model = str(model or "")
         self._mu = InstrumentedLock("migrate.plane")
         self._chans: dict[str, dcn.DcnChannel] = {}
         self.routes: dict[str, dict] = {}
@@ -389,12 +392,17 @@ class PageMigrator:
         span.response_size = len(raw)
         return hdr
 
-    def fetch(self, tokens: Sequence[int], src: str, dest: str) -> int:
+    def fetch(self, tokens: Sequence[int], src: str, dest: str,
+              model: Optional[str] = None) -> int:
         """Pull-based warm-up: ask `src`'s ``_kvmig`` to push `tokens`'
         committed prefix to `dest` (normally this replica's own
         address).  Returns the pages landed (0 when the owner holds
         none); raises RpcError on a dead or refusing owner, and the
-        caller recomputes."""
+        caller recomputes.  ``model`` (default: the migrator's own tag)
+        tags the request: an owner tagged with another model refuses
+        it, so a stale holder list cannot splice one model's pages into
+        another's store."""
+        model = self.model if model is None else str(model)
         with stagetag.stage("migrate"):
             if fault.ENABLED and fault.hit(fault.PREFIX_FETCH,
                                            src=src) is not None:
@@ -405,6 +413,8 @@ class PageMigrator:
                     f"injected prefix fetch failure from {src}")
             ch = self._channel(str(src))
             req = {"tokens": [int(t) for t in tokens], "dest": str(dest)}
+            if model:
+                req["model"] = model
             try:
                 out = ch.channel.call_sync(
                     MIGRATE_SERVICE, "PushTo", req, serializer="json",
@@ -448,10 +458,16 @@ class MigrateService(Service):
 
     NAME = MIGRATE_SERVICE
 
-    def __init__(self, store, *, migrator: Optional[PageMigrator] = None):
+    def __init__(self, store, *, migrator: Optional[PageMigrator] = None,
+                 model: str = ""):
         self.store = store
         self.migrator = migrator or PageMigrator(
-            store, name=f"{store.name}_pusher")
+            store, name=f"{store.name}_pusher", model=model)
+        # the model plane: the deployment this store's pages belong to.
+        # "" accepts any PushTo; a tagged service refuses one that names
+        # a DIFFERENT model, so pages never cross models
+        self.model = str(model or "")
+        self.n_model_refusals = 0
         self._mu = InstrumentedLock("migrate.service")
         self.inbound: dict[str, dict] = {}
         _register_service(self)
@@ -589,6 +605,15 @@ class MigrateService(Service):
             cntl.set_failed(errors.EREQUEST,
                             'PushTo needs "tokens" and "dest"')
             return None
+        want = str(req.get("model") or "")
+        if want and self.model and want != self.model:
+            with self._mu:
+                self.n_model_refusals += 1
+            cntl.set_failed(
+                errors.EREQUEST,
+                f"model mismatch: this store holds {self.model!r} "
+                f"pages, refusing a {want!r} fetch")
+            return None
 
         def push() -> dict:
             try:
@@ -604,24 +629,29 @@ class MigrateService(Service):
     def stats(self) -> dict:
         with self._mu:
             inbound = {s: dict(r) for s, r in self.inbound.items()}
-        return {"store": self.store.name, "inbound": inbound}
+        return {"store": self.store.name, "model": self.model,
+                "model_refusals": self.n_model_refusals,
+                "inbound": inbound}
 
 
 def register_migration(server, store,
-                       migrator: Optional[PageMigrator] = None
-                       ) -> MigrateService:
+                       migrator: Optional[PageMigrator] = None,
+                       model: str = "") -> MigrateService:
     """Expose `store` as a migration destination (and PushTo source) on
-    `server`, before ``server.start()``."""
-    svc = MigrateService(store, migrator=migrator)
+    `server`, before ``server.start()``.  ``model`` tags the store's
+    deployment on the model plane (see MigrateService)."""
+    svc = MigrateService(store, migrator=migrator, model=model)
     server.add_service(svc)
     return svc
 
 
-def make_prefix_fetcher(migrator: PageMigrator, self_addr: str):
+def make_prefix_fetcher(migrator: PageMigrator, self_addr: str,
+                        model: Optional[str] = None):
     """The ``prefix_fetcher`` hook ``Serving.Generate`` calls on a cache
     miss: try each holder the caller named (skipping this replica) until
     one push lands; returns the pages fetched, 0 when every holder
-    failed (the caller recomputes)."""
+    failed (the caller recomputes).  ``model`` tags every fetch (default:
+    the migrator's tag), so an owner of another model refuses it."""
     self_addr = str(self_addr)
 
     def fetch(prompt, holders) -> int:
@@ -630,7 +660,7 @@ def make_prefix_fetcher(migrator: PageMigrator, self_addr: str):
             if h == self_addr:
                 continue
             try:
-                pages = migrator.fetch(prompt, h, self_addr)
+                pages = migrator.fetch(prompt, h, self_addr, model=model)
             except Exception:
                 continue
             if pages:

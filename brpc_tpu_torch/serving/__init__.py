@@ -2,13 +2,14 @@
 for speculative decoding, the dynamic batcher, the engine supervisor,
 the ``Serving`` RPC service in front of them, and the cluster front
 door (the router, its session WAL, the ``_cluster`` and ``_telemetry``
-services, the model plane).
+services, the model plane, the SLO engine).
 
 Every live batcher, engine, supervisor and router registers here,
 weakly and by name (as in ``brpc_tpu/serving/__init__.py``), so the
-``/serving`` and ``/cluster`` console pages (``serving_snapshot``,
-``cluster_snapshot``) list them without keeping a closed component
-alive.  Every retired decode
+``/serving``, ``/cluster`` and ``/fleet`` console pages
+(``serving_snapshot``, ``cluster_snapshot``, ``fleet_snapshot``) list
+them without keeping a closed component alive; ``fleet_trace_spans``
+is ``/rpcz?trace_id=``'s cross-process read.  Every retired decode
 attempt (engine) and every finished supervised generation (supervisor)
 appends a summary record -- trace id, TTFT, inter-token gaps, prefix
 hit, restarts -- to a bounded ring here; ``generations_snapshot`` rolls
@@ -61,6 +62,36 @@ def cluster_snapshot() -> dict:
     return {
         "routers": {name: r.stats() for name, r in sorted(routers.items())},
     }
+
+
+def fleet_snapshot(points: int = 32) -> dict:
+    """Live routers' fleet telemetry: the ``/fleet`` console page's data
+    (per router the collector's state -- pulls, bytes, tombstones --,
+    the windowed series rings, the per-model scoreboard, the canary
+    picks, and the SLO engine's state and decision trail)."""
+    with _reg_mu:
+        routers = dict(_routers)
+    return {
+        "routers": {name: r.fleet_snapshot(points)
+                    for name, r in sorted(routers.items())},
+    }
+
+
+def fleet_trace_spans(trace_id: int) -> list:
+    """The spans of one trace from other processes, fanned out through
+    every live router's collector (what ``/rpcz?trace_id=`` stitches);
+    empty when no router is registered or nothing was collected."""
+    with _reg_mu:
+        routers = dict(_routers)
+    merged: dict = {}
+    for r in routers.values():
+        try:
+            for s in r.trace_fanout(trace_id):
+                merged.setdefault(
+                    (s.trace_id, s.span_id, s.kind, s.start_us), s)
+        except Exception:
+            continue     # a dead peer must not hide the others' spans
+    return list(merged.values())
 
 
 def serving_snapshot() -> dict:
@@ -176,3 +207,4 @@ from .modelplane import (DEFAULT_MODEL, CanarySplit,  # noqa: E402,F401
 from .telemetry import (TELEMETRY_SERVICE,  # noqa: E402,F401
                         FleetCollector, TelemetryService,
                         register_telemetry, telemetry_snapshot)
+from .slo import Objective, SLOEngine  # noqa: E402,F401

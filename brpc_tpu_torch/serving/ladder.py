@@ -23,9 +23,16 @@ class OverloadLadder:
     at a minimum level whatever the local pressures."""
 
     def __init__(self, thresholds: Sequence[Mapping[str, float]], *,
-                 hysteresis_ticks: int = 5):
+                 hysteresis_ticks: int = 5,
+                 level_names: Sequence[str] = ()):
         self.thresholds = tuple(dict(t) for t in thresholds)
         self.hysteresis_ticks = int(hysteresis_ticks)
+        # optional display names, one per level (the training arbiter
+        # names its rungs "pace_trainer", ...)
+        self.level_names = tuple(level_names)
+        if self.level_names and \
+                len(self.level_names) != len(self.thresholds):
+            raise ValueError("level_names must match thresholds")
         self.level = 0
         self.floor = 0
         self._calm_ticks = 0
@@ -86,6 +93,7 @@ class OverloadLadder:
             "calm_ticks": self._calm_ticks,
             "escalations": list(self.escalations[1:]),
             "first_fired": list(self.first_fired[1:]),
+            "level_names": list(self.level_names),
             "de_escalations": self.de_escalations,
         }
 

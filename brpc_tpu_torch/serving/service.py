@@ -33,8 +33,13 @@ A copy of ``brpc_tpu/serving/service.py``'s ``Serving`` service and
     response of JSON lines, ``{"token": t}`` per token, then
     ``{"done": true}`` (with ``"error"`` when the generation failed).
 
-Left out (ROADMAP): the multi-model ``deployments`` table (item 7,
-second half).
+On the model plane a ``deployments`` table (a
+:class:`~brpc_tpu_torch.serving.modelplane.ReplicaDeployments`) resolves
+each request's ``model`` field -- Score, ScoreT, Generate and the HTTP
+``?model=`` -- to that deployment's engine, batcher and prefix fetcher;
+a model the replica does not serve fails EINTERNAL (a failover code)
+and counts in ``n_model_misroutes``, and a Generate's response names the
+deployment it ran on (``"model"``).
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ from ..rpc.service import Service, method
 class ServingService(Service):
     NAME = "Serving"
 
-    def __init__(self, batcher=None, engine=None, prefix_fetcher=None):
+    def __init__(self, batcher=None, engine=None, prefix_fetcher=None,
+                 deployments=None):
         self._batcher = batcher
         self._engine = engine
         # ``fetch(prompt, holders) -> pages``, usually
@@ -60,11 +66,46 @@ class ServingService(Service):
         self.prefix_fetcher = prefix_fetcher
         self.prefix_fetches = 0
         self.prefix_fetched_pages = 0
-        self._fetch_mu = InstrumentedLock("serving.prefix_fetch")
+        # the counters below change on fetch and request threads
+        self._mu = InstrumentedLock("serving.service")
+        # the model plane: a ReplicaDeployments table maps the forwarded
+        # "model" field to per-deployment bindings; None serves the
+        # constructor's bindings whatever the field says
+        self.deployments = deployments
+        self.n_model_misroutes = 0
+
+    def _resolve(self, cntl, model):
+        """``(model_key, bindings)`` for a request naming ``model``.
+        Without a deployment table the constructor's bindings serve it.
+        A model this replica does not serve fails EINTERNAL -- a
+        failover code, so the router's session driver re-routes instead
+        of killing the session -- and adds one to ``n_model_misroutes``
+        (0 in a healthy fleet: the router picks from its catalog);
+        ``(None, None)`` then."""
+        if self.deployments is None or len(self.deployments) == 0:
+            return None, {"engine": self._engine, "batcher": self._batcher,
+                          "prefix_fetcher": self.prefix_fetcher}
+        try:
+            key, row = self.deployments.resolve(model or None)
+        except KeyError:
+            with self._mu:
+                self.n_model_misroutes += 1
+            cntl.set_failed(
+                errors.EINTERNAL,
+                f"model {model!r} not served by this replica "
+                f"(serves {self.deployments.keys()})")
+            return None, None
+        return key, {"engine": row.get("engine") or self._engine,
+                     "batcher": row.get("batcher") or self._batcher,
+                     "prefix_fetcher": (row.get("prefix_fetcher")
+                                        or self.prefix_fetcher)}
 
     @method(request="json", response="json")
     def Score(self, cntl, req):
-        batcher = self._batcher
+        _, b = self._resolve(cntl, (req or {}).get("model"))
+        if b is None:
+            return None
+        batcher = b["batcher"]
         if batcher is None:
             cntl.set_failed(errors.ENOMETHOD, "no batcher registered")
             return None
@@ -81,7 +122,10 @@ class ServingService(Service):
     def ScoreT(self, cntl, req):
         """Score on the binary tensor wire: the row rides as a float32
         tensor field both ways."""
-        batcher = self._batcher
+        _, b = self._resolve(cntl, (req or {}).get("model"))
+        if b is None:
+            return None
+        batcher = b["batcher"]
         if batcher is None:
             cntl.set_failed(errors.ENOMETHOD, "no batcher registered")
             return None
@@ -97,7 +141,10 @@ class ServingService(Service):
 
     @method(request="json", response="json")
     def Generate(self, cntl, req):
-        engine = self._engine
+        model_key, b = self._resolve(cntl, (req or {}).get("model"))
+        if b is None:
+            return None
+        engine = b["engine"]
         if engine is None:
             cntl.set_failed(errors.ENOMETHOD, "no decode engine registered")
             return None
@@ -115,6 +162,10 @@ class ServingService(Service):
             stream.write(json.dumps({"token": tok}).encode(), timeout_s=2.0)
 
         def on_done(err) -> None:
+            if err is None and model_key is not None:
+                # the warm-up proof: a finished generation flips its
+                # deployment loading -> warm on the published catalog
+                self.deployments.note_generation(model_key)
             msg = {"done": True}
             if err is not None:
                 msg["error"] = err.code
@@ -141,10 +192,13 @@ class ServingService(Service):
 
         def submit(hit: int) -> dict:
             rid = engine.submit(prompt, max_new, emit, on_done, **kw)
-            return {"accepted": True, "req_id": rid, "prefix_hit": hit}
+            resp = {"accepted": True, "req_id": rid, "prefix_hit": hit}
+            if model_key is not None:
+                resp["model"] = model_key
+            return resp
 
         holders = req.get("prefix_holders") or []
-        fetcher = self.prefix_fetcher
+        fetcher = b["prefix_fetcher"]
         if (fetcher is not None and holders
                 and store is not None and len(prompt) > 1):
             full = len(prompt) // store.page_tokens * store.page_tokens
@@ -168,7 +222,7 @@ class ServingService(Service):
             return 0
         if not fetched:
             return 0
-        with self._fetch_mu:     # fetches finish on their own threads
+        with self._mu:     # fetches finish on their own threads
             self.prefix_fetches += 1
             self.prefix_fetched_pages += fetched
         return int(store.probe(prompt))
@@ -208,9 +262,13 @@ class ScoreClient:
         return np.asarray(resp["y"], np.float32)
 
 
-def http_generate_handler(engine):
+def http_generate_handler(engine, deployments=None):
     """An HTTP handler streaming decode tokens as chunked JSON lines
-    through a ProgressiveAttachment: the no-TRPC client path."""
+    through a ProgressiveAttachment: the no-TRPC client path.  With a
+    ``deployments`` table (a ``ReplicaDeployments``), ``?model=`` picks
+    the deployment as ``Serving.Generate``'s ``model`` field does; a
+    model this replica does not serve answers 404."""
+    from ..builtin.router import http_response
     from ..rpc.progressive import ProgressiveResponse
 
     def handler(req):
@@ -219,8 +277,19 @@ def http_generate_handler(engine):
                       (req.query.get("prompt") or "0").split(",") if t]
             max_new = int(req.query.get("max_new_tokens", "16"))
         except ValueError as e:
-            from ..builtin.router import http_response
             return http_response(400, f"bad query: {e}\n")
+        eng, key = engine, None
+        if deployments is not None and len(deployments):
+            model = req.query.get("model") or None
+            try:
+                key, row = deployments.resolve(model)
+            except KeyError:
+                return http_response(
+                    404, f"model {model!r} not served by this replica "
+                         f"(serves {deployments.keys()})\n")
+            eng = row.get("engine") or engine
+        if eng is None:
+            return http_response(404, "no decode engine registered\n")
 
         def writer(pa):
             def emit(tok: int) -> None:
@@ -232,13 +301,15 @@ def http_generate_handler(engine):
                                           "http client gone")
 
             def on_done(err) -> None:
+                if err is None and key is not None:
+                    deployments.note_generation(key)
                 msg = {"done": True}
                 if err is not None:
                     msg["error"] = err.code
                 pa.write(json.dumps(msg) + "\n")
                 pa.close()
 
-            engine.submit(prompt, max_new, emit, on_done)
+            eng.submit(prompt, max_new, emit, on_done)
 
         return ProgressiveResponse(writer,
                                    content_type="application/json-seq")
@@ -247,18 +318,22 @@ def http_generate_handler(engine):
 
 
 def register_serving(server, batcher=None, engine=None,
-                     prefix_fetcher=None,
+                     prefix_fetcher=None, deployments=None,
                      http_generate_path: Optional[str]
                      = "/serving/generate") -> ServingService:
     """Register the serving surface on ``server`` (before
     ``server.start()``): the ``Serving`` service -- ``batcher`` answers
     Score/ScoreT, ``engine`` (a DecodeEngine or an EngineSupervisor)
     Generate, ``prefix_fetcher`` warms a cache miss from the request's
-    ``prefix_holders`` -- and, with an engine, the chunked HTTP generate
-    route at ``http_generate_path`` (None: no route)."""
-    svc = ServingService(batcher, engine, prefix_fetcher)
+    ``prefix_holders``, ``deployments`` (a ``ReplicaDeployments``) maps
+    the request's ``model`` field to a deployment's own bindings -- and,
+    with an engine or deployments, the chunked HTTP generate route at
+    ``http_generate_path`` (None: no route)."""
+    svc = ServingService(batcher, engine, prefix_fetcher,
+                         deployments=deployments)
     server.add_service(svc)
-    if engine is not None and http_generate_path:
-        server.add_http_handler(http_generate_path,
-                                http_generate_handler(engine))
+    if (engine is not None or deployments is not None) \
+            and http_generate_path:
+        server.add_http_handler(
+            http_generate_path, http_generate_handler(engine, deployments))
     return svc

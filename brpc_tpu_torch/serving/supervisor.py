@@ -473,6 +473,12 @@ class EngineSupervisor:
         self._restart_times.append(t_detect)
         self._restart_times = [t for t in self._restart_times
                                if t > t_detect - self.restart_window_s]
+        gave_up = len(self._restart_times) > self.max_restarts
+        if gave_up:
+            # past the budget: the state reads "failed" before a stolen
+            # request's terminal is delivered below, whose own restart
+            # budget may end it first (on its emitter thread)
+            self._mark_failed()
         old = self._engine
         with self._ecv:
             self._engine = None         # re-admissions park in _engine_now
@@ -521,7 +527,6 @@ class EngineSupervisor:
             self._by_rid.clear()
         old.close(timeout_s=1.0)
         self._report_crash()
-        gave_up = len(self._restart_times) > self.max_restarts
         if not gave_up:
             try:
                 new = self._build_engine()
@@ -571,16 +576,19 @@ class EngineSupervisor:
         except Exception:
             _log.exception("supervisor crash report failed")
 
+    def _mark_failed(self) -> None:
+        self.state = "failed"
+        with self._ecv:
+            self._failed = True
+            self._ecv.notify_all()
+
     def _fail_permanently(self, reason: str) -> None:
         """Too many crashes inside the window: stop rebuilding, and give
         every pending request a definite error.  The state reads
         "failed" before any parked re-admission wakes to its error, so a
         caller that got the error sees it (the JAX package publishes the
         state after the wake-up)."""
-        self.state = "failed"
-        with self._ecv:
-            self._failed = True
-            self._ecv.notify_all()
+        self._mark_failed()
         err = errors.RpcError(
             errors.EINTERNAL,
             f"engine supervisor gave up after "

@@ -9,27 +9,32 @@
   * ``trainer.py``: :class:`DataParallelTrainer`: N worker threads
     pulling minibatches, Lookup through PSClient, local grads by
     autograd, PS.Update waves under bounded-staleness gating, periodic
-    Pull-based eval showing the loss decrease THROUGH the service.
+    Pull-based eval showing the loss decrease THROUGH the service;
+  * ``arbiter.py``: :class:`TrafficArbiter` (the overload ladder's
+    background rungs: pace and shed trainer waves BEFORE serving traffic
+    is touched) and :class:`MixedWorkloadHarness` (one fleet carrying
+    zipf lookups, streamed generations and update waves at once).
 
-The reference's ``arbiter.py`` (``TrafficArbiter``,
-``MixedWorkloadHarness``) imports the fleet telemetry plane and is
-ROADMAP Queue 1 item 7, second half.  ``trainer`` imports lazily (PEP 562) so the
-wire layers can import :class:`OptimizerSpec` alone.
+``trainer`` and ``arbiter`` import lazily (PEP 562), so the wire layers
+can import :class:`OptimizerSpec` alone.
 """
 from __future__ import annotations
 
 from .optimizer import OptimizerSpec, oracle_apply
 
-__all__ = ["OptimizerSpec", "oracle_apply", "DataParallelTrainer"]
+__all__ = ["OptimizerSpec", "oracle_apply", "DataParallelTrainer",
+           "TrafficArbiter", "MixedWorkloadHarness"]
 
-_NOT_PORTED = ("TrafficArbiter", "MixedWorkloadHarness")
+_LAZY = {
+    "DataParallelTrainer": ".trainer",
+    "TrafficArbiter": ".arbiter",
+    "MixedWorkloadHarness": ".arbiter",
+}
 
 
 def __getattr__(name: str):
-    if name == "DataParallelTrainer":
-        from .trainer import DataParallelTrainer
-        return DataParallelTrainer
-    if name in _NOT_PORTED:
-        raise AttributeError(f"{name} (train/arbiter.py) is not ported "
-                             f"yet: ROADMAP Queue 1 item 7, second half")
-    raise AttributeError(name)
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(name)
+    import importlib
+    return getattr(importlib.import_module(mod, __name__), name)

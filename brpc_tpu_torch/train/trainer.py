@@ -19,7 +19,10 @@ complete) rather than wedging the fleet.
 
 Update waves heal like any PS client: a failed wave re-issues with its
 ``update_token``, so partitions that already applied DEDUP.  Fault site
-``fault.UPDATE_WAVE`` injects wave failures.
+``fault.UPDATE_WAVE`` injects wave failures.  With ``arbiter=`` (a
+:class:`~brpc_tpu_torch.train.arbiter.TrafficArbiter`) every wave first
+passes the arbiter's ``admit_wave``: paced or held while the fleet is
+under pressure, the cheapest relief it has.
 
 ``mode="pull_compute_push"`` is the baseline the fused path is measured
 against: optimizer slots live AT THE TRAINER (host numpy), each wave
@@ -84,9 +87,6 @@ class DataParallelTrainer:
                  seed: int = 0, name: str = "trainer", device=None):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-        if arbiter is not None:
-            raise ValueError("arbiter= (TrafficArbiter) is not ported yet:"
-                             " ROADMAP Queue 1 item 7, second half")
         self.device = resolve_device(device)
         self.client = client
         self.cfg = cfg or PSConfig(
@@ -117,9 +117,13 @@ class DataParallelTrainer:
         self._progress = [0] * self.n_workers
         self._stop = False
         self._errors: list = []
+        # a TrafficArbiter: each wave asks its admit_wave first (paced or
+        # held while the fleet is under pressure)
+        self.arbiter = arbiter
         self._mu = InstrumentedLock("train.trainer")
         self.n_waves = 0
         self.n_wave_retries = 0
+        self.n_paced = 0
         self.n_io_retries = 0
         self.loss_history: list = []
         self.step_losses: list = []
@@ -208,6 +212,9 @@ class DataParallelTrainer:
         momentum."""
         tok = None
         for attempt in range(self.wave_max_retry + 1):
+            if self.arbiter is not None and self.arbiter.admit_wave():
+                with self._mu:
+                    self.n_paced += 1
             try:
                 if fault.ENABLED and fault.hit(
                         fault.UPDATE_WAVE, worker=w, step=s,
@@ -358,6 +365,7 @@ class DataParallelTrainer:
                 "waves": self.n_waves,
                 "wave_retries": self.n_wave_retries,
                 "io_retries": self.n_io_retries,
+                "paced_waves": self.n_paced,
                 "max_lag": self.max_lag,
                 "sync": self.sync,
                 "elapsed_s": elapsed,
@@ -390,6 +398,7 @@ class DataParallelTrainer:
                 "waves": self.n_waves,
                 "wave_retries": self.n_wave_retries,
                 "io_retries": self.n_io_retries,
+                "paced_waves": self.n_paced,
                 "progress": list(self._progress),
                 "evals": len(self.loss_history),
             }

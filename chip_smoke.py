@@ -299,6 +299,40 @@ imports nothing of JAX or of the JAX package (``brpc_tpu``), and:
      first resumed token stall, the router restart's, and the buddy
      pushes and their pages;
 
+ 18. the multi-model plane, the wide configuration in two versions:
+     ``b@v1`` with step 4's weights and oracle, ``b@v2`` with weights
+     from the next seed and its own dense oracle (computed before the
+     counted windows).  Two replicas in this process, each a
+     ``ReplicaDeployments`` over both versions (a store on its own block
+     pool, a ``TransformerRunner`` and an engine per version; ``Serving``
+     resolving the ``model`` field, ``_kvmig`` tagged ``b@v1``,
+     ``_cluster``, ``_telemetry``) behind a ``ClusterRouter``.  Promote:
+     a 3:1 split of ``b@v1``:``b@v2`` and an ``SLOEngine`` with generous
+     TTFT/ITL targets; waves of 4 ``model="b"`` sessions of 8 tokens
+     until it reads ``promoted`` (the routers pull fleet telemetry every
+     1 s, not 0.25: the pulls hold the interpreter lock the four engines
+     share): every stream equals exactly one version's oracle, no
+     wrong-model route at the router or a replica, the catalog ends at
+     ``b@v2`` alone, the trail holds ``promote``, ``/fleet`` renders the
+     state and ``/brpc_metrics`` carries ``brpc_fleet_slo_state``.  Roll
+     back: a fresh fleet whose ``b@v2`` runner waits before every decode
+     step (tokens unchanged), at least 50 ms and twice the ITL target;
+     the target 1.5x ``b@v1``'s router-read ITL p99 after a cold and a
+     warm pass (printed beside that pass's client-timed p99); waves until
+     ``rolled_back``, no
+     ``promote`` in the trail, later streams ``b@v1``'s.  Then one
+     ``MixedWorkloadHarness`` at the reference's defaults with its PS
+     shards, fused apply and replica store on the card, its queue delay
+     a ramp from its first wave (in place of its own reading), its
+     queue depth and pool pressure the real readings: every shape
+     completes,
+     the rungs fire cheapest first (the trainer paced or shed before the
+     batcher brownout), every update applies exactly once.  Every pool
+     at its baseline after each fleet, no stream or emit ring leaked.
+     Prints per-version tokens/s and TTFT p50/p99, the sessions and
+     seconds of the promotion and the rollback, the phase's K1
+     launches and its wall time;
+
 and prints ``{"kernels": [...]}`` (K1 and K2: the PS and training
 phases run torch ops only), the card line, and as the LAST line
 ``{"ok": true, "device": {...}}``.
@@ -425,8 +459,11 @@ def bound(nbytes, flops, dtype, ms):
 
 
 # profiler windows that ``launches_per_call`` took again because the
-# profiler saw no device event in them at all; printed with the kernels
+# profiler saw no device event in them at all; printed with the kernels.
+# BLIND_WITHOUT_CPU: of those, the windows with no CPU event either (the
+# whole profiler session recorded nothing, not only its CUDA activity)
 BLIND_WINDOWS = [0]
+BLIND_WITHOUT_CPU = [0]
 
 
 def launches_per_call(fn, tries=3):
@@ -456,9 +493,13 @@ def launches_per_call(fn, tries=3):
                                  ProfilerActivity.CUDA]) as prof:
             body()
             torch.cuda.synchronize()
-        evs = sorted((e for e in prof.events()
+        all_evs = prof.events()
+        evs = sorted((e for e in all_evs
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
+        if not evs and not any(e.device_type == DeviceType.CPU
+                               for e in all_evs):
+            BLIND_WITHOUT_CPU[0] += 1
         return [e.name for e in evs]
 
     fn()
@@ -2881,8 +2922,9 @@ REST_PAIRS = 3       # RESTful Score / ScoreT pairs of 8 rows
 CONSOLE_PAGES = ("/status", "/vars", "/brpc_metrics", "/rpcz", "/serving",
                  "/kvcache", "/hotspots", "/hotspots/locks")
 # the routes whose module the port lacks: 501, naming what brings them
+# (``/fleet`` answers 200 since step 18's slice)
 NOT_PORTED_ROUTES = frozenset((
-    "/ici", "/fleet", "/hotspots/cpu",
+    "/ici", "/hotspots/cpu",
     "/hotspots/native", "/hotspots/contention", "/hotspots/heap",
     "/hotspots/growth", "/pprof/profile", "/pprof/profile_native",
     "/pprof/contention", "/pprof/heap", "/pprof/growth"))
@@ -3972,6 +4014,385 @@ def serve_router(dev, cfg, ctx, card):
     }
 
 
+# ---- step 18: the multi-model plane ----------------------------------------
+
+PLANE_WAVE = 4        # sessions at once while the SLO engine decides
+PLANE_TOKENS = 8      # tokens a session: the oracles' first 8
+PLANE_PULL_S = 1.0    # the routers' telemetry pull interval (default 0.25)
+PLANE_MAX_WAVES = 60  # the promotion and the rollback each end well before
+CANARY_DELAY_S = 0.05  # the slow canary's per-step delay (the reference's)
+
+
+def serve_modelplane(dev, cfg, ctx, card):
+    """Step 18 (see the module docstring): two versions of (b) behind
+    the port's ``ClusterRouter``, an ``SLOEngine`` promoting a healthy
+    canary and rolling back a slow one, then the ``TrafficArbiter`` over
+    one ``MixedWorkloadHarness`` on the card."""
+    import brpc_tpu_torch.migrate as migrate
+    import brpc_tpu_torch.models as models
+    import brpc_tpu_torch.rpc as rpc
+    import brpc_tpu_torch.serving as serving
+    from brpc_tpu_torch.ici.block_pool import BlockPool
+    from brpc_tpu_torch.rpc.stream import StreamRegistry
+    geo, prompts = ctx["geometry"], ctx["prompts"]
+    pt = geo["page_tokens"]
+    label = "b plane"
+    counts = Counts()
+    t_phase = time.perf_counter()
+    streams0 = StreamRegistry.instance().count()
+    keys = ("b@v1", "b@v2")
+    params = {"b@v1": ctx["params"],
+              "b@v2": models.init_runner_params(cfg, ctx["seed"] + 1,
+                                                device=dev)}
+    # each version's dense oracle, outside the counted windows (greedy:
+    # a stream's first tokens are the longer oracle's first tokens)
+    oracle = {"b@v1": [o[:PLANE_TOKENS] for o in ctx["oracle"]],
+              "b@v2": [models.dense_generate(params["b@v2"], cfg, p,
+                                             PLANE_TOKENS, device=dev)
+                       for p in prompts]}
+    check(oracle["b@v1"] != oracle["b@v2"],
+          f"{label}: the two versions stream the same tokens")
+
+    class SlowRunner(models.TransformerRunner):
+        """The slow canary: every decode step waits ``delay_s`` first;
+        its tokens are the version's own."""
+        delay_s = CANARY_DELAY_S
+
+        def step(self, *a, **kw):
+            time.sleep(self.delay_s)
+            return super().step(*a, **kw)
+
+    def build_fleet(tag, slow=()):
+        """Two replicas, each a ``ReplicaDeployments`` over both
+        versions (a store on its own block pool, a runner and an engine
+        per version) behind one router."""
+        reps = []
+        for i in range(2):
+            deps = serving.ReplicaDeployments(name=f"{tag}_{i}")
+            r = {"name": f"{tag}_{i}", "deps": deps, "stores": {},
+                 "engines": {}, "free0": {}, "server": None}
+            reps.append(r)
+            for key in keys:
+                name = f"{tag}_{i}_{key}"
+                store = models.make_store_for(
+                    cfg, page_tokens=pt, max_blocks=geo["max_blocks"],
+                    pool=BlockPool(dev), name=name)
+                r["stores"][key] = store
+                r["free0"][key] = store.pagepool.pool.stats()["classes"]
+                cls = SlowRunner if key in slow else models.TransformerRunner
+                r["engines"][key] = serving.DecodeEngine(
+                    runner=cls(params[key], cfg, store=store, device=dev,
+                               name=name),
+                    store=store, num_slots=geo["num_slots"],
+                    max_pages_per_slot=geo["max_pages"],
+                    prefill_buckets=geo["buckets"], device=dev, name=name)
+                deps.deploy(key, engine=r["engines"][key], store=store,
+                            state="warm")
+            server = rpc.Server(enable_dcn=True, dcn_device=str(dev))
+            r["server"] = server
+            r["svc"] = serving.register_serving(
+                server, engine=r["engines"]["b@v1"], deployments=deps)
+            mig = migrate.register_migration(server, r["stores"]["b@v1"],
+                                             model="b@v1")
+            serving.register_cluster_control(
+                server, engine=r["engines"]["b@v1"],
+                store=r["stores"]["b@v1"], name=r["name"],
+                deployments=deps)
+            serving.register_telemetry(server, name=r["name"])
+            server.start("127.0.0.1", 0)
+            r["addr"] = f"127.0.0.1:{server.port}"
+            deps.deploy("b@v1", prefix_fetcher=migrate.make_prefix_fetcher(
+                mig.migrator, r["addr"], model="b@v1"), state="warm")
+        router = serving.ClusterRouter(
+            [serving.ReplicaHandle(
+                r["addr"], name=r["name"], engine=r["engines"]["b@v1"],
+                store=r["stores"]["b@v1"], server=r["server"],
+                deployments=r["deps"]) for r in reps],
+            page_tokens=pt, name=f"{tag}_router", timeout_ms=120_000,
+            progress_timeout_s=60.0,
+            telemetry_pull_interval_s=PLANE_PULL_S)
+        rsrv = rpc.Server()
+        serving.register_router(rsrv, router)
+        rsrv.start("127.0.0.1", 0)
+        return reps, router, rsrv
+
+    def tear_down(reps, router, rsrv):
+        """Close the fleet; every pool back at its baseline."""
+        router.close()
+        rsrv.stop()
+        rsrv.join()
+        for r in reps:
+            for key, eng in r["engines"].items():
+                check(eng.join_idle(60), f"{label}: {r['name']} {key} "
+                                         f"not idle")
+            r["server"].stop()
+            r["server"].join()
+            for key, eng in r["engines"].items():
+                eng.close()
+                store = r["stores"][key]
+                live_n = store.stats()["live_seqs"]
+                check(live_n == 0, f"{label}: {live_n} sequences live on "
+                                   f"{r['name']} {key}")
+                store.clear()
+                check(store.pagepool.blocks_leased() == 0 and
+                      store.pagepool.pool.stats()["classes"]
+                      == r["free0"][key],
+                      f"{label}: {r['name']} {key}'s page pool is not at "
+                      f"its baseline")
+
+    def wave(raddr, model, first):
+        """``PLANE_WAVE`` sessions at once over the prompts from index
+        ``first``: each stream's version (the oracle it equals), its
+        client-timed TTFT and decode seconds."""
+        cli = serving.RouterClient(raddr, timeout_ms=120_000)
+        started = []
+        for k in range(PLANE_WAVE):
+            idx = (first + k) % len(prompts)
+            marks = []
+
+            def emit(tok, marks=marks):
+                marks.append(time.perf_counter())
+
+            t0 = time.perf_counter()
+            started.append((cli.start(prompts[idx], PLANE_TOKENS,
+                                      emit=emit, model=model), idx, marks,
+                            t0))
+        out = []
+        for g, idx, marks, t0 in started:
+            check(g.wait(300) and g.error is None,
+                  f"{label}: a {model} session ended with E{g.error}")
+            got = [key for key in keys if g.tokens == oracle[key][idx]]
+            check(len(got) == 1, f"{label}: a {model} stream equals "
+                                 f"{len(got)} versions' oracles: "
+                                 f"{g.tokens}")
+            out.append({"version": got[0], "ttft_s": marks[0] - t0,
+                        "decode_s": marks[-1] - marks[0],
+                        "gaps_s": [b - a for a, b in zip(marks, marks[1:])]})
+        return out
+
+    def drive(raddr, engine, want):
+        """Waves of ``model="b"`` sessions until the SLO engine reads
+        ``want``: the sessions, the seconds, each stream's record."""
+        t0 = time.perf_counter()
+        recs = []
+        for w in range(PLANE_MAX_WAVES):
+            if engine.state == want:
+                break
+            recs += counts.window(
+                lambda: wave(raddr, "b", w * PLANE_WAVE))
+        check(engine.state == want, f"{label}: the SLO engine reads "
+                                    f"{engine.state}, not {want}: "
+                                    f"{engine.snapshot()}")
+        return recs, time.perf_counter() - t0
+
+    def per_version(recs, wall):
+        out = {}
+        for key in keys:
+            mine = [r for r in recs if r["version"] == key]
+            out[key] = {
+                "streams": len(mine),
+                "tokens_per_s": len(mine) * PLANE_TOKENS / wall,
+                "stream_tokens_per_s_p50": pct(
+                    [(PLANE_TOKENS - 1) / r["decode_s"] for r in mine], 50)
+                if mine else None,
+                "ttft_ms_p50": 1e3 * pct([r["ttft_s"] for r in mine], 50)
+                if mine else None,
+                "ttft_ms_p99": 1e3 * pct([r["ttft_s"] for r in mine], 99)
+                if mine else None}
+        return out
+
+    def misroutes(reps, router):
+        return (router.stats()["wrong_model_routes"],
+                [r["svc"].n_model_misroutes for r in reps])
+
+    def http_get(addr, path):
+        web = rpc.HttpChannel(addr, timeout_ms=30_000)
+        try:
+            r = web.get(path)
+            return r.status, r.body.decode()
+        finally:
+            web.close()
+
+    # -- 1. promote: a 3:1 split, generous targets, until promoted
+    reps, router, rsrv = build_fleet("b_plane_p")
+    try:
+        raddr = f"127.0.0.1:{rsrv.port}"
+        router.deploy_model("b@v1", op="deploy", weight=3, state="warm")
+        router.deploy_model("b@v2", op="deploy", weight=1, state="warm")
+        promote_eng = serving.SLOEngine(
+            "b", "b@v1", "b@v2",
+            [serving.Objective("ttft_p99_ms", 60_000.0),
+             serving.Objective("itl_p99_ms", 60_000.0)],
+            short_window_s=0.3, long_window_s=0.8, clean_windows=3)
+        router.attach_slo(promote_eng)
+        recs, promote_s = drive(raddr, promote_eng, "promoted")
+        promote_versions = per_version(recs, promote_s)
+        wrong = misroutes(reps, router)
+        check(wrong == (0, [0, 0]), f"{label}: wrong-model routes {wrong}")
+        weights = router.catalog.version_weights("b")
+        check(weights == {"b@v2": 1},
+              f"{label}: the catalog after the promotion reads {weights}")
+        acts = [e.get("action") for e in promote_eng.trail()]
+        check("promote" in acts, f"{label}: no promote in the trail {acts}")
+        after = counts.window(lambda: wave(raddr, "b", 0))
+        check(all(r["version"] == "b@v2" for r in after),
+              f"{label}: a stream after the promotion was not b@v2's")
+        status, page = http_get(raddr, "/fleet")
+        check(status == 200 and "slo: b" in page and "promoted" in page,
+              f"{label}: /fleet answered {status} without the promotion")
+        status, text = http_get(raddr, "/brpc_metrics")
+        check(status == 200 and 'brpc_fleet_slo_state{model="b",'
+              'state="promoted"} 1' in text,
+              f"{label}: /brpc_metrics lacks brpc_fleet_slo_state")
+        promote = {"sessions": len(recs), "seconds": promote_s,
+                   "versions": promote_versions,
+                   "trail": [{k: e[k] for k in ("verdict", "action")
+                              if k in e} for e in promote_eng.trail()],
+                   "evaluations": promote_eng.evaluations}
+    finally:
+        tear_down(reps, router, rsrv)
+    # -- 2. roll back: b@v2 slow, tokens unchanged; the ITL target from
+    # b@v1's p99 over a warm pass
+    reps, router, rsrv = build_fleet("b_plane_r", slow=("b@v2",))
+    try:
+        raddr = f"127.0.0.1:{rsrv.port}"
+        router.deploy_model("b@v1", op="deploy", weight=1, state="warm")
+        router.deploy_model("b@v2", op="deploy", weight=1, state="warm")
+        counts.window(lambda: wave(raddr, "b@v1", 0))       # cold
+        warm = counts.window(lambda: wave(raddr, "b@v1", 0))
+        check(all(r["version"] == "b@v1" for r in warm),
+              f"{label}: a b@v1 stream was not b@v1's")
+        # the series the engine burns: the router's b@v1 ITL p99 (its
+        # scoreboard is cumulative: the cold and the warm pass); the
+        # client-timed gaps of the warm pass beside it
+        v1_itl_p99 = router.model_metrics.snapshot()["b@v1"]["itl"][
+            "p99_ms"]
+        warm_gaps = [g for r in warm for g in r["gaps_s"]]
+        target_ms = 1.5 * v1_itl_p99
+        # the canary's delay stays far past the target whatever b@v1's
+        # pace on this card
+        SlowRunner.delay_s = max(CANARY_DELAY_S, 2e-3 * target_ms)
+        rollback_eng = serving.SLOEngine(
+            "b", "b@v1", "b@v2", [serving.Objective("itl_p99_ms",
+                                                    target_ms)],
+            short_window_s=0.3, long_window_s=0.8, clean_windows=1000)
+        router.attach_slo(rollback_eng)
+        recs, rollback_s = drive(raddr, rollback_eng, "rolled_back")
+        rollback_versions = per_version(recs, rollback_s)
+        acts = [e.get("action") for e in rollback_eng.trail()]
+        check("rollback" in acts and "promote" not in acts,
+              f"{label}: the rollback trail reads {acts}")
+        weights = router.catalog.version_weights("b")
+        check(weights == {"b@v1": 1},
+              f"{label}: the catalog after the rollback reads {weights}")
+        after = counts.window(lambda: wave(raddr, "b", 4))
+        check(all(r["version"] == "b@v1" for r in after),
+              f"{label}: a stream after the rollback was not b@v1's")
+        wrong = misroutes(reps, router)
+        check(wrong == (0, [0, 0]), f"{label}: wrong-model routes {wrong}")
+        rollback = {"sessions": len(recs), "seconds": rollback_s,
+                    "versions": rollback_versions,
+                    "v1_itl_p99_ms": v1_itl_p99,
+                    "v1_warm_client_gap_ms_p99": 1e3 * pct(warm_gaps, 99),
+                    "itl_target_ms": target_ms,
+                    "canary_step_delay_s": SlowRunner.delay_s,
+                    "trail": [{k: e[k] for k in ("verdict", "action")
+                               if k in e} for e in rollback_eng.trail()],
+                    "evaluations": rollback_eng.evaluations}
+    finally:
+        tear_down(reps, router, rsrv)
+    # -- 3. the arbiter over one mixed fleet on the card, at the
+    # reference's defaults; a pressure ramp overlays the real readings
+    # (pace, then shed, then one serving rung) so the order shows
+    arbiter = mixed_on_card(dev, label)
+    check(until(lambda: StreamRegistry.instance().count() <= streams0,
+                10, 0.05),
+          f"{label}: {StreamRegistry.instance().count() - streams0} "
+          f"streams leaked")
+    check(counts.paged > 0, f"{label}: launches {counts.as_dict()}")
+    return {
+        "config": label, "card": card, "new_tokens": PLANE_TOKENS,
+        "wave": PLANE_WAVE, "telemetry_pull_interval_s": PLANE_PULL_S, "promote": promote, "rollback": rollback,
+        "arbiter": arbiter, "wall_s": time.perf_counter() - t_phase,
+        "launches": counts.as_dict(), "paged_cuda_launches": counts.paged_cuda,
+    }
+
+
+def mixed_on_card(dev, label):
+    """One ``MixedWorkloadHarness`` at the reference's defaults with its
+    PS shards, fused apply and replica store on ``dev``: every shape
+    completes, the rungs fire cheapest first, every update applies
+    exactly once."""
+    from brpc_tpu_torch.train.arbiter import MixedWorkloadHarness
+    t0 = [None]
+    # queue delay (us) by seconds since the first wave was admitted:
+    # pace_trainer, shed_trainer (waves held), brownout_batcher, calm.
+    # It stands in for the harness's own queue-delay reading (the lookup
+    # batchers' 10 s average), so the rungs fire in the same order at
+    # whatever pace the lookups run on this card; the queue depth and
+    # pool pressure stay the real readings
+    ramp = ((0.05, 20_000.0), (0.35, 60_000.0), (0.5, 200_000.0))
+
+    def pressures():
+        p = h._pressures()
+        p["queue_delay_us"] = 0.0
+        if t0[0] is None:
+            if h.arbiter.n_admitted_waves < 1:
+                return p
+            t0[0] = time.monotonic()
+        dt = time.monotonic() - t0[0]
+        for until_s, delay in ramp:
+            if dt < until_s:
+                p["queue_delay_us"] = delay
+                break
+        return p
+
+    t_run = time.perf_counter()
+    h = MixedWorkloadHarness(name="b_plane_mix", device=dev,
+                             pressure_fn=pressures)
+    try:
+        rep = h.run()
+    finally:
+        h.close()
+    wall = time.perf_counter() - t_run
+    gen, look, tr = rep["shapes"]["generate"], rep["shapes"]["lookup"], \
+        rep["train"]
+    check(look["ok"] > 0 and gen["ok"] > 0 and tr["waves"] == 12,
+          f"{label}: a shape did not complete: lookups {look['ok']}, "
+          f"generations {gen['ok']}, waves {tr['waves']}")
+    check(gen["mismatch"] == 0 and gen["bit_exact"] == gen["ok"],
+          f"{label}: {gen['mismatch']} generations differ under load")
+    check(all(rep["exactly_once"]) and rep["stale_reads"] == 0,
+          f"{label}: exactly-once {rep['exactly_once']}, stale reads "
+          f"{rep['stale_reads']}")
+    check(rep["queues_drained"] and rep["pools_at_baseline"],
+          f"{label}: queues drained {rep['queues_drained']}, pools at "
+          f"baseline {rep['pools_at_baseline']}")
+    lad, arb = rep["arbiter"]["ladder"], rep["arbiter"]
+    ff = lad["first_fired"]
+    check(ff[0] is not None and ff[1] is not None and
+          (ff[2] is None or ff[0] < ff[1] < ff[2]) and
+          (ff[3] is None or ff[2] is not None and ff[2] < ff[3]),
+          f"{label}: the rungs fired out of order: {lad}")
+    check(arb["paced_waves"] + arb["shed_waves"] > 0,
+          f"{label}: no trainer wave was paced or shed: {arb}")
+    return {"wall_s": wall, "elapsed_s": rep["elapsed_s"],
+            "lookup": {k: look[k] for k in ("ok", "err", "qps", "p50_us",
+                                            "p99_us")},
+            "generate": {k: gen[k] for k in ("ok", "err", "bit_exact",
+                                             "qps", "p50_us", "p99_us")},
+            "train": {k: tr[k] for k in ("waves", "wave_retries",
+                                         "paced_waves", "updates_per_s",
+                                         "loss_first", "loss_final")},
+            "ladder": {k: lad[k] for k in ("level_names", "escalations",
+                                           "first_fired")},
+            "arbiter": {k: arb[k] for k in ("admitted_waves", "paced_waves",
+                                            "shed_waves", "brownouts",
+                                            "clamps")},
+            "shards": [{k: s[k] for k in ("version", "device")
+                        if k in s} for s in rep["shards"]]}
+
+
 # ---- PS and training phases: the flagship train step, the shard fleet,
 # the trainer through the wire -------------------------------------------
 
@@ -4489,6 +4910,7 @@ def main() -> int:
     # -- kernel phase, at the serving path's shapes
     # wall seconds of each phase: what each costs the script
     phase_s = {"build": time.perf_counter() - t_start}
+    phase_blind = {}      # profiler windows taken again, by phase
     t_phase = time.perf_counter()
 
     def phase_done(name):
@@ -4496,6 +4918,9 @@ def main() -> int:
         now = time.perf_counter()
         phase_s[name] = now - t_phase
         t_phase = now
+        blind = BLIND_WINDOWS[0] - sum(phase_blind.values())
+        if blind:
+            phase_blind[name] = blind
 
     paged = [
         run_paged(dev, "a decode N4 MP32 T4 +self", cfg_a, page_tokens=4,
@@ -4550,7 +4975,8 @@ def main() -> int:
               f"bound, {row['cuda_launches_per_call']} CUDA launches/call",
               flush=True)
     print(f"profiler windows taken again (no device event seen): "
-          f"{BLIND_WINDOWS[0]}", flush=True)
+          f"{BLIND_WINDOWS[0]} ({BLIND_WITHOUT_CPU[0]} with no CPU event "
+          f"either)", flush=True)
 
     phase_done("kernels")
     # -- serving phase, twice
@@ -4932,9 +5358,32 @@ def main() -> int:
           f"pages) {json.dumps(r['buddy_pushes'])}; phase wall "
           f"{r['wall_s']:.1f} s; launches {r['launches']} "
           f"({r['paged_cuda_launches']} paged CUDA)", flush=True)
+    # -- step 18: the multi-model plane, (b) in two versions
+    served_plane = serve_modelplane(dev, cfg_b, ctx_b, card)
+    check_rings("serve plane", rings0)
+    phase_done("serve plane")
+    r = served_plane
+    for part in ("promote", "rollback"):
+        q = r[part]
+        print(f"serve b plane {part} [{card}]: {q['sessions']} sessions "
+              f"of {PLANE_TOKENS} tokens in {q['seconds']:.2f} s, "
+              f"{PLANE_WAVE} at a time; per version "
+              f"{json.dumps(q['versions'])}; trail "
+              f"{json.dumps(q['trail'])}", flush=True)
+    rb, mx = r["rollback"], r["arbiter"]
+    print(f"serve b plane rollback target [{card}]: b@v1 ITL p99 "
+          f"{rb['v1_itl_p99_ms']:.2f} ms (router), warm-pass client gap "
+          f"p99 {rb['v1_warm_client_gap_ms_p99']:.2f} ms, target "
+          f"{rb['itl_target_ms']:.2f} ms, b@v2 step delay "
+          f"{rb['canary_step_delay_s']} s", flush=True)
+    print(f"serve b plane arbiter [{card}]: {json.dumps(mx)}", flush=True)
+    print(f"serve b plane [{card}]: phase wall {r['wall_s']:.1f} s; "
+          f"launches {r['launches']} ({r['paged_cuda_launches']} paged "
+          f"CUDA)", flush=True)
     print(f"phase seconds [{card}]: {json.dumps(phase_s)}", flush=True)
     print(f"profiler windows taken again, whole script: "
-          f"{BLIND_WINDOWS[0]}", flush=True)
+          f"{BLIND_WINDOWS[0]} ({BLIND_WITHOUT_CPU[0]} with no CPU event "
+          f"either), by phase {json.dumps(phase_blind)}", flush=True)
 
     def entry(name, source, replaces, rows, main_row):
         m = rows[main_row]
@@ -4943,7 +5392,8 @@ def main() -> int:
                        served + speculative + [served_rpc, served_control,
                                                served_host, served_replicas,
                                                served_migration, served_http,
-                                               served_capture, served_router])
+                                               served_capture, served_router,
+                                               served_plane])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "max_abs_diff": err,
@@ -4975,7 +5425,11 @@ def main() -> int:
               "migration_serving": served_migration,
               "http_serving": served_http,
               "capture_serving": served_capture,
-              "router_serving": served_router, "phase_s": phase_s,
+              "router_serving": served_router,
+              "plane_serving": served_plane, "phase_s": phase_s,
+              "blind_windows": BLIND_WINDOWS[0],
+              "blind_windows_by_phase": phase_blind,
+              "blind_windows_without_cpu": BLIND_WITHOUT_CPU[0],
               "native_build_s": cbuild.build_seconds,
               "launch_counts_now": {
                   "paged_attention": pa.paged_attention.launches,

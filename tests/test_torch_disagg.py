@@ -14,14 +14,16 @@ transient sync failure that heals, and a pure replay after a clean
 finish.  The primary is killed by a ``fault.STEP`` crash at a fixed
 step, so the crash window is the same on every run.
 
-The reference's ``test_disagg_prefill_reuses_batcher`` waits for the
-token-id stand-in stores (ROADMAP Queue 1 item 7): here the port refuses
-``batcher=`` without ``runner=``; ``test_press_disagg_mode`` waits for
-``tools/`` (item 6).  Tolerances: greedy tokens are exact, held to the
+The reference's ``test_disagg_prefill_reuses_batcher`` runs on
+harness-mode stores (token ids as page payloads) with the reference's
+step function, its prefill through a ``DynamicBatcher``: every stream is
+the step function's oracle, as the JAX package's.
+``test_press_disagg_mode`` waits for ``tools/`` (item 6h).  Tolerances: greedy tokens are exact, held to the
 JAX package's teacher-forced dense forward and to the port's oracle.
 """
 import threading
 
+import numpy as np
 import pytest
 
 from brpc_tpu_torch import errors, fault, rpc
@@ -149,13 +151,102 @@ def test_disagg_migration_failure_recompute_fallback(split):
 
 
 def test_disagg_prefill_without_runner_raises_naming_item_7():
+    """The refusal this name records is gone: ``batcher=`` without
+    ``runner=`` now builds a prefill replica that prefills through the
+    batcher (``test_disagg_prefill_reuses_batcher`` drives it)."""
     store = mk_store("dg_nobatch")
     try:
-        with pytest.raises(ValueError, match="item 7"):
-            register_disagg_prefill(rpc.Server(), store, "127.0.0.1:1",
-                                    batcher=object())
+        b = object()
+        replica = register_disagg_prefill(rpc.Server(), store,
+                                          "127.0.0.1:1", batcher=b)
+        assert replica.batcher is b and replica.runner is None
+        assert replica.stats() == {"prefills": 0, "fallbacks": 0,
+                                   "decode_addr": "127.0.0.1:1"}
     finally:
         store.close()
+
+
+def _harness_step(tokens, positions, pages=None):
+    # the reference test's position-dependent step
+    return (np.asarray(tokens) * 7 + np.asarray(positions)) % 997
+
+
+def _harness_expected(prompt, n):
+    last, pos, out = prompt[-1], len(prompt), []
+    for _ in range(n):
+        last = (last * 7 + pos) % 997
+        out.append(last)
+        pos += 1
+    return out
+
+
+def test_disagg_prefill_reuses_batcher():
+    """Concurrent Prefill RPCs coalesce through the caller's
+    DynamicBatcher; the split generations are the step function's."""
+    from brpc_tpu.tools.rpc_press import expected_model_tokens
+    from brpc_tpu_torch.ici.block_pool import BlockPool
+    from brpc_tpu_torch.kvcache import KVCacheStore
+    from brpc_tpu_torch.serving import DynamicBatcher
+    calls = []
+
+    def counting_fn(x):
+        calls.append(np.asarray(x).shape[0])
+        return np.asarray(x).sum(axis=-1)
+
+    def harness_store(name):
+        return KVCacheStore(BlockPool(CPU), page_tokens=PT, page_bytes=256,
+                            max_blocks=32, name=name, vector_kv=False)
+
+    batcher = DynamicBatcher(counting_fn, max_batch_size=8,
+                             max_delay_us=30_000, length_buckets=(16,),
+                             name="tdg_prefill_b")
+    dstore = harness_store("tdg_dec_b")
+    eng = DecodeEngine(_harness_step, num_slots=4, store=dstore,
+                       max_pages_per_slot=32, device=CPU,
+                       name="tdg_eng_b")
+    dsrv = rpc.Server(enable_dcn=True, dcn_device=CPU)
+    register_disagg_decode(dsrv, dstore, eng)
+    dsrv.start("127.0.0.1", 0)
+    pstore = harness_store("tdg_pre_b")
+    psrv = rpc.Server(enable_dcn=True, dcn_device=CPU)
+    replica = register_disagg_prefill(psrv, pstore,
+                                      f"127.0.0.1:{dsrv.port}",
+                                      batcher=batcher)
+    psrv.start("127.0.0.1", 0)
+    try:
+        co = DisaggCoordinator(f"127.0.0.1:{psrv.port}",
+                               f"127.0.0.1:{dsrv.port}", device=CPU)
+        outs = [None] * 4
+        prompts = [[90 + 100 * i + j for j in range(9)] for i in range(4)]
+
+        def run(i):
+            outs[i] = co.generate(prompts[i], 3)
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        for i, out in enumerate(outs):
+            assert out is not None and out["error"] is None
+            assert out["tokens"] == _harness_expected(prompts[i], 3)
+            # the JAX package's oracle of the same rule
+            assert out["tokens"] == expected_model_tokens(prompts[i], 3, 7)
+            assert out["prefill"]["migrated_pages"] == 2   # 9 tokens, PT 4
+        st = batcher.stats()
+        assert st["completed"] == 4 and st["batches"] >= 1
+        assert sum(calls) == 4 and replica.stats()["prefills"] == 4
+    finally:
+        eng.close()
+        batcher.close()
+        psrv.stop()
+        psrv.join()
+        dsrv.stop()
+        dsrv.join()
+        for store in (pstore, dstore):
+            store.clear()
+            store.close()
 
 
 # ---------------------------------------------------------------------------

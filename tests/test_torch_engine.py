@@ -224,15 +224,20 @@ def test_port_runs_without_jax_or_brpc_tpu():
     ``/status`` and a chunked ``/serving/generate`` through the port's
     ``HttpChannel``), leaves jax and the JAX package out of sys.modules
     (and torch, until the first module past the router tier);
-    the only native core mapped is the port's own build."""
+    the only native core mapped is the port's own build.  The SLO
+    engine and the deployment registry load without torch too, and the
+    training arbiter imports with the rest."""
     code = textwrap.dedent("""
         import json, sys, threading
         import numpy as np
         # the router tier (and the RPC front under it) loads without
         # torch: a router process starts without its import
         import brpc_tpu_torch.serving.router_proc
+        # so do the SLO engine and the deployment registry
+        import brpc_tpu_torch.serving.slo, brpc_tpu_torch.models.registry
         assert "torch" not in sys.modules
         import brpc_tpu_torch
+        import brpc_tpu_torch.train.arbiter
         import brpc_tpu_torch.rpc as rpc
         import brpc_tpu_torch.bvar, brpc_tpu_torch.fault
         import brpc_tpu_torch.rpc.tensorframe

@@ -456,13 +456,19 @@ class TestGradientOrdering:
             assert fired["brownout_at_batcher"] == 1
             assert fired["clamp_at_engine"] == 1
             assert fired["evict_at_store"] == 1
-            # de-escalation: reverse order, one level per window
+            # de-escalation: reverse order, one level per window.  A tick
+            # still at level 4 (inside the hysteresis window) evicts as
+            # level 4 does -- pages the first admitted session committed
+            # late included -- so the count to hold is the one after the
+            # last level-4 tick
             pressures["sessions_ratio"] = 0.0
             order_down = []
             evict_hi = rep.store.evictions
             for expect_lvl in (3, 2, 1, 0):
                 for _ in range(router._ladder.hysteresis_ticks):
                     router._tick()
+                    if router.level == 4:
+                        evict_hi = rep.store.evictions
                 assert router.level == expect_lvl, \
                     (router.level, expect_lvl)
                 if expect_lvl == 3:
@@ -1202,9 +1208,8 @@ def test_cluster_page_timing_free_fields_equal_reference():
     for page in pages.values():
         for row in page["session_rows"]:
             row.pop("session_id")
-    # the ladder's level display names (the training arbiter's, not
-    # ported yet): empty here
-    assert pages["jax"]["ladder"].pop("level_names") == []
+    # the router's ladder has no level display names in either package
+    assert pages["port"]["ladder"]["level_names"] == []
     assert pages["port"] == pages["jax"]
 
 

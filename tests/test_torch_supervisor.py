@@ -207,6 +207,9 @@ class TestCrashRecovery:
             store=store, heartbeat_deadline_s=0.3, check_interval_s=0.05,
             ladder=CALM_LADDER, name="tsup_wg")
         try:
+            # a cold first forward can outlast the heartbeat deadline on
+            # its own: warm the engine before the wedge is injected
+            _warm(sup)
             plan = fault.FaultPlan(5).on(fault.HEARTBEAT, fault.ERROR,
                                          times=-1)
             prompt = _prompts(1, base=7)[0]
@@ -502,7 +505,7 @@ def test_overload_ladder_levels_equal_the_reference():
             p = {k: v / 4 for k, v in p.items()}      # calm stretches
         assert port.update(p) == ref.update(p), tick
     want = ref.stats()
-    assert want.pop("level_names") == []     # display names: not ported
+    assert want["level_names"] == []         # no display names given
     assert port.stats() == want
 
 
